@@ -7,10 +7,18 @@ non-zero exit at the first phase that fails:
   device   require CUDA; print the card's name and power limit.
   build    build the kernels from nerfies_tpu_torch/csrc with one nvcc call.
   kernels  hold each kernel against its plain PyTorch version at the full
-           width of the bench render model and at the row counts serving
-           gives it (atol = rtol = 0.05, the bf16 tolerance of
+           width of the bench model and at the row counts serving and
+           training give it (atol = rtol = 0.05, the bf16 tolerance of
            tests/test_fused_mlp.py), and time kernel, plain version and a
-           bf16 torch.matmul chain of the same function (a yardstick only).
+           bf16 torch.matmul chain of the same function, under autograd
+           for a backward (a yardstick only; median of 5, CUDA events).
+           The training kernels (NeRF MLP backward, warp forward with 3
+           tangents, warp backward) run at the bench step's row counts and
+           are compared the same way: per-row outputs at atol = rtol =
+           0.05 on all but MAX_FLIPPED_ROWS_FRAC of the rows (ReLU mask
+           flips, see below), each dW leaf by max|kernel - plain| <=
+           DW_MAX_REL * max|plain|; each backward runs twice and must give
+           bit-identical dW (the reduction is deterministic).
   serve    build the bench render model from a seed and serve 3 requests
            of 128x128 rays through evaluation.make_render_fn and
            render_image (chunk 8192, warp alpha 6.0); check the outputs and
@@ -19,6 +27,21 @@ non-zero exit at the first phase that fails:
   parity   render 256 rays on the card through the kernels and on the CPU
            through the plain versions, from the same params; compare at
            atol 0.02 and rtol 0.05 (tests/test_fast_render.py).
+  train    build the bench training workload from the seed (bench.py:57-107:
+           batch 6144, stratified sampling, elastic log_svals / weight,
+           background loss on 16,384 points, warp alpha 6.0, lr 1e-3,
+           elastic weight 1e-3, background weight 1.0) and take 1 warm-up
+           and 3 timed steps through training.make_train_step; require
+           finite losses, changed params and the launch counts the path
+           implies per step (NeRF forward 2, NeRF backward 2, warp forward
+           3, warp backward 3), with the counts set to 0 just before the
+           timed steps and read just after; then profile one more step.
+  train_parity  one step of the full-width model on 128 rays with
+           deterministic sampling, on the card (kernels) and on the CPU
+           (plain versions), from the same params and the same background
+           ids and noise; stats at rtol 0.05, atol 5e-4 and each param's
+           gradient (the first Adam moment, 0.1 x gradient) at cosine >
+           0.95 and norm ratio in (0.7, 1.4), as tests/test_fused_train.py.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -27,6 +50,7 @@ Usage: python3 chip_smoke.py [--seed 0]
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,8 +64,10 @@ from nerfies_tpu_torch import evaluation
 from nerfies_tpu_torch.models import modules
 from nerfies_tpu_torch.models import nerf
 from nerfies_tpu_torch.ops import _build
+from nerfies_tpu_torch import training
 from nerfies_tpu_torch.ops import encoding
 from nerfies_tpu_torch.ops import fused_mlp
+from nerfies_tpu_torch.ops import fused_warp
 
 KERNEL_ATOL = KERNEL_RTOL = 0.05
 RENDER_ATOL, RENDER_RTOL = 0.02, 0.05
@@ -50,6 +76,23 @@ NUM_REQUESTS = 3
 CHUNK = 8192
 WARP_ALPHA = 6.0
 PARITY_RAYS = 256
+TRAIN_BATCH = 6144
+SERVE_KERNELS = ('nerf_mlp_forward', 'warp_trunk_forward')
+TRAIN_BACKGROUND_POINTS = 16384
+# A pre-activation within rounding of zero can fall on either side of the
+# ReLU in the kernel and in the plain version (their f32 sums run in
+# different orders); a backward then passes that cotangent element in
+# one and stops it in the other, and so does a tangent chain, which takes
+# the primal's mask. Such flips touch few, isolated rows; a wrong kernel
+# disagrees on most. Per-row backward and tangent outputs may differ
+# beyond atol = rtol = 0.05 on at most this share of rows.
+MAX_FLIPPED_ROWS_FRAC = 0.01
+DW_MAX_REL = 0.05  # max|kernel - plain| <= DW_MAX_REL * max|plain| per dW
+TRAIN_STEPS = 3
+PARITY_TRAIN_RAYS = 128
+PARITY_BACKGROUND_POINTS = 2048
+STATS_RTOL, STATS_ATOL = 0.05, 5e-4
+GRAD_COSINE, GRAD_NORM_RATIO = 0.95, (0.7, 1.4)
 
 # Dense peaks of the card at its full power limit, from NVIDIA's data
 # sheets (SXM parts): bf16 tensor FLOP/s and device-memory bytes/s.
@@ -125,6 +168,71 @@ def library_warp(x, row_biases, ops, trunk_depth):
       acc = acc + biases[i]
     h = torch.relu(acc)
   return torch.addmm(ops.head_b, h, ops.head_w).float()
+
+
+def _leaf(t):
+  return None if t is None else t.detach().clone().requires_grad_(True)
+
+
+def library_nerf_backward(x, rgb_row_bias, ops, trunk_depth, g_alpha, g_rgb):
+  """Autograd through library_nerf: returns the timed backward call."""
+  ops = dataclasses.replace(
+      ops, trunk_w=[_leaf(t) for t in ops.trunk_w],
+      trunk_wx={k: _leaf(v) for k, v in ops.trunk_wx.items()},
+      trunk_b=[_leaf(t) for t in ops.trunk_b],
+      bottleneck=tuple(_leaf(t) for t in ops.bottleneck),
+      alpha_w=_leaf(ops.alpha_w), alpha_b=_leaf(ops.alpha_b),
+      rgb_hidden=tuple(_leaf(t) for t in ops.rgb_hidden),
+      rgb_w=_leaf(ops.rgb_w), rgb_b=_leaf(ops.rgb_b))
+  xl = _leaf(x.to(torch.bfloat16))
+  rbl = _leaf(rgb_row_bias)
+  leaves = [xl, rbl] + [t for t in (
+      ops.trunk_w + list(ops.trunk_wx.values()) + ops.trunk_b
+      + list(ops.bottleneck) + list(ops.rgb_hidden)
+      + [ops.alpha_w, ops.alpha_b, ops.rgb_w, ops.rgb_b])]
+  with torch.enable_grad():
+    outs = library_nerf(xl, rbl, ops, trunk_depth)
+  return lambda: torch.autograd.grad(outs, leaves, (g_alpha, g_rgb),
+                                     retain_graph=True)
+
+
+def library_warp_train(x, e, tangents, ops, trunk_depth, skips):
+  """The warp trunk's primal and tangent chains as bf16 torch.matmul calls.
+
+  `ops` is fused_warp.pack's dict; returns (out, [jout]) as f32.
+  """
+  xb, eb = x.to(torch.bfloat16), e.to(torch.bfloat16)
+  tb = [t.to(torch.bfloat16) for t in tangents]
+  h, ths = None, []
+  for i in range(trunk_depth):
+    if i == 0:
+      acc = torch.addmm(ops['b0'], xb, ops['w0']) + eb @ ops['we0']
+      taccs = [t @ ops['w0'] for t in tb]
+    elif i in skips:
+      acc = (torch.addmm(ops[f'b{i}'], h, ops[f'w{i}']) + xb @ ops[f'wx{i}']
+             + eb @ ops[f'we{i}'])
+      taccs = [th @ ops[f'w{i}'] + t @ ops[f'wx{i}'] for th, t in zip(ths, tb)]
+    else:
+      acc = torch.addmm(ops[f'b{i}'], h, ops[f'w{i}'])
+      taccs = [th @ ops[f'w{i}'] for th in ths]
+    mask = acc > 0
+    h = torch.relu(acc)
+    ths = [ta * mask for ta in taccs]
+  out = torch.addmm(ops['bh'], h, ops['wh']).float()
+  return out, [(th @ ops['wh']).float() for th in ths]
+
+
+def library_warp_backward(x, e, tangents, ops, trunk_depth, skips, g_out,
+                          g_jouts):
+  """Autograd through library_warp_train: returns the timed backward."""
+  ops = {k: _leaf(v) for k, v in ops.items()}
+  el = _leaf(e.to(torch.bfloat16))
+  with torch.enable_grad():
+    out, jouts = library_warp_train(x, el, tangents, ops, trunk_depth, skips)
+  leaves = [el] + list(ops.values())
+  return lambda: torch.autograd.grad([out] + jouts, leaves,
+                                     [g_out] + list(g_jouts),
+                                     retain_graph=True)
 
 
 # ----------------------------------------------------------------- phases
@@ -247,6 +355,7 @@ def _kernel_cases(model, device, generator):
         flops=2 * warp_macs * n)
 
 
+@torch.no_grad()
 def phase_kernels(model, device, generator, device_name):
   peak_flops, peak_bytes = peaks(device_name)
   print(f'peaks used for bounds: {peak_flops / 1e12:.0f} TFLOP/s bf16, '
@@ -286,6 +395,206 @@ def phase_kernels(model, device, generator, device_name):
   return results
 
 
+def _compare_rows(got, want):
+  """(max_abs_err, rows beyond atol = rtol = KERNEL_ATOL, rows allowed)."""
+  bad = (~torch.isclose(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)).any(1)
+  allowed = max(1, int(MAX_FLIPPED_ROWS_FRAC * got.shape[0]))
+  return float((got - want).abs().max()), int(bad.sum()), allowed
+
+
+def _flat_tree(tree):
+  """[('a/b', tensor)] of a nested dict of tensors."""
+  return [('/'.join(path), t) for path, t in fused_mlp.flatten_tree(tree)]
+
+
+def _check_backward(name, rows_got, rows_want, dw_got, dw_want):
+  """Per-row outputs and dW leaves of a backward kernel vs its plain one."""
+  worst = 0.0
+  for i, (g, w) in enumerate(zip(rows_got, rows_want)):
+    err, bad, allowed = _compare_rows(g, w)
+    worst = max(worst, err)
+    print(f'    {name} output {i}: max_abs_err {err:.3g}, {bad} of '
+          f'{g.shape[0]} rows beyond atol=rtol={KERNEL_ATOL} (allowed '
+          f'{allowed})')
+    check(bad <= allowed, f'{name}: output {i} differs on {bad} rows')
+  dw_want = dict(_flat_tree(dw_want))
+  ratios = []
+  for leaf, g in _flat_tree(dw_got):
+    w = dw_want[leaf]
+    err = float((g - w).abs().max())
+    scale = float(w.abs().max())
+    ratios.append((err / scale if scale else 0.0, leaf))
+    check(err <= DW_MAX_REL * scale + 1e-6,
+          f'{name}: dW {leaf} max_abs_err {err} > {DW_MAX_REL} x {scale}')
+  ratio, leaf = max(ratios)
+  print(f'    {name} dW: worst max|kernel - plain| / max|plain| = '
+        f'{ratio:.3g} ({leaf}), bound {DW_MAX_REL}')
+  return worst
+
+
+def _same_bits(name, first, second):
+  for (leaf, a), (_, b) in zip(_flat_tree(first), _flat_tree(second)):
+    check(torch.equal(a, b), f'{name}: dW {leaf} differs between two runs')
+
+
+@torch.no_grad()
+def phase_train_kernels(model, device, generator, device_name):
+  """The three training kernels at the bench step's row counts."""
+  peak_flops, peak_bytes = peaks(device_name)
+  params = model.params
+  mlp = params['nerf_mlps_coarse']
+  depth, skips = model.nerf_trunk_depth, model.nerf_skips
+  nerf_ops = fused_mlp.pack_nerf_mlp(
+      mlp, encoding.posenc_output_dim(3, model.num_nerf_point_freqs), depth,
+      skips)
+  nerf_macs = (sum(t.numel() for t in nerf_ops.trunk_w)
+               + sum(t.numel() for t in nerf_ops.trunk_wx.values())
+               + nerf_ops.bottleneck[0].numel()
+               + nerf_ops.width * mlp['alpha_logit']['kernel'].shape[1]
+               + nerf_ops.rgb_hidden[0].numel()
+               + mlp['rgb_logit']['kernel'].numel())
+  nerf_param_bytes = 4 * sum(t.numel() for _, t in _flat_tree(mlp))
+  warp = params['warp_field']
+  warp_depth = int(model.warp_kwargs.get('trunk_depth', 6))
+  warp_skips = tuple(model.warp_kwargs.get('skips', (4,)))
+  width = warp['trunk']['hidden_0']['kernel'].shape[1]
+  # A Glorot head, as in the serving case: the 1e-4 init would hide errors.
+  head = modules.mlp([width], 0, width, output_channels=6,
+                     generator=torch.Generator().manual_seed(1))
+  warp_params = {'trunk': warp['trunk'],
+                 'head': {'logit': _tree_to(head, device)['logit']}}
+  warp_param_bytes = 4 * sum(t.numel() for _, t in _flat_tree(warp_params))
+  c_warp = encoding.posenc_output_dim(3, model.num_warp_freqs)
+  f_embed = model.num_warp_features
+  wops = fused_warp.pack(warp_params, c_warp, f_embed, warp_depth,
+                         warp_skips)
+  chain_macs = (sum(v.numel() for k, v in wops.items()
+                    if k[0] == 'w' and k[1] != 'e' and k != 'wh')
+                + warp_params['head']['logit']['kernel'].numel())
+  embed_macs = sum(v.numel() for k, v in wops.items() if k.startswith('we'))
+  # The backward's input cotangents without dx: the head and layers 1..
+  data_macs = (warp_params['head']['logit']['kernel'].numel()
+               + sum(wops[f'w{i}'].numel() for i in range(1, warp_depth)))
+  nt = 3
+  warp_fwd_macs = (1 + nt) * chain_macs + embed_macs
+  warp_bwd_macs = 2 * warp_fwd_macs + (1 + nt) * data_macs + embed_macs
+
+  def randn(*shape):
+    return torch.randn(*shape, generator=generator, device=device)
+
+  def bound(flops, nbytes_):
+    flop_ms = flops / peak_flops * 1e3
+    byte_ms = nbytes_ / peak_bytes * 1e3
+    return max(flop_ms, byte_ms), ('operations' if flop_ms >= byte_ms
+                                   else 'bytes')
+
+  def report(name, rows, err, ms, plain_ms, library_ms, flops, nbytes_):
+    bound_ms, bound_by = bound(flops, nbytes_)
+    print(f'  {name} rows={rows}: {ms:.3f} ms kernel, {plain_ms:.3f} ms '
+          f'plain, {library_ms:.3f} ms library, bound {bound_ms:.3f} ms '
+          f'({bound_by}), {flops / ms / 1e9:.1f} TFLOP/s')
+    return dict(max_abs_err=err, rows=rows, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+  results = {}
+  coarse = TRAIN_BATCH * model.num_coarse_samples
+  fine = TRAIN_BATCH * (model.num_coarse_samples + model.num_fine_samples)
+  c_pe = encoding.posenc_output_dim(3, model.num_nerf_point_freqs)
+  for n in (coarse, fine):
+    x = encoding.posenc(randn(n, 3), model.num_nerf_point_freqs).to(
+        torch.bfloat16)
+    rb = randn(n, nerf_ops.rgb_width).to(torch.bfloat16)
+    ga, gr = randn(n, 8), randn(n, 8)
+    kernel = lambda: fused_mlp.nerf_mlp_backward(
+        x, rb, mlp, ga, gr, trunk_depth=depth, skips=skips)
+    plain = lambda: fused_mlp.nerf_mlp_backward_reference(
+        x, rb, mlp, ga, gr, trunk_depth=depth, skips=skips)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    _same_bits('nerf_mlp_backward', got[2], again[2])
+    del again
+    want = plain()
+    err = _check_backward(f'nerf_mlp_backward rows={n}', got[:2], want[:2],
+                          got[2], want[2])
+    del got, want
+    ms = time_ms(kernel, reps=5)
+    if n == coarse:
+      plain_ms = time_ms(plain, reps=3)
+      library_ms = time_ms(library_nerf_backward(x, rb, nerf_ops, depth, ga,
+                                                 gr), reps=5)
+      nbytes_ = (nbytes(x, rb, ga, gr) + operand_bytes(nerf_ops)
+                 + n * (c_pe + nerf_ops.rgb_width) * 4 + nerf_param_bytes)
+      results['nerf_mlp_backward'] = report(
+          'nerf_mlp_backward', n, err, ms, plain_ms, library_ms,
+          2 * 3 * nerf_macs * n, nbytes_)
+    else:
+      print(f'  nerf_mlp_backward rows={n}: {ms:.3f} ms kernel')
+      entry = results['nerf_mlp_backward']
+      entry['max_abs_err'] = max(err, entry['max_abs_err'])
+      entry['fine_rows_ms'] = ms
+    del x, rb, ga, gr, kernel, plain
+
+  n = coarse
+  pts = randn(n, 3)
+  x, ts = encoding.posenc_with_tangents(pts, model.num_warp_freqs,
+                                        alpha=WARP_ALPHA)
+  e = 0.05 * torch.rand(n, f_embed, generator=generator, device=device)
+  kernel = lambda: fused_warp.warp_mlp_forward(
+      x, e, ts, warp_params, trunk_depth=warp_depth, skips=warp_skips)
+  plain = lambda: fused_warp.warp_mlp_reference(
+      x, e, ts, warp_params, trunk_depth=warp_depth, skips=warp_skips)
+  got = kernel()
+  torch.cuda.synchronize()
+  want = plain()
+  # The tangent chains pass through the primal's ReLU mask, so a flipped
+  # mask shows in jouts as it does in a backward's rows.
+  err = 0.0
+  for i, (g, w) in enumerate(zip([got[0]] + list(got[1]),
+                                 [want[0]] + list(want[1]))):
+    e_i, bad, allowed = _compare_rows(g, w)
+    err = max(err, e_i)
+    print(f'    warp_mlp_forward rows={n} output {i}: max_abs_err {e_i:.3g}, '
+          f'{bad} rows beyond atol=rtol={KERNEL_ATOL} (allowed {allowed})')
+    check(bad <= allowed, f'warp_mlp_forward: output {i} differs on {bad} '
+          'rows')
+  del got, want
+  results['warp_mlp_forward'] = report(
+      'warp_mlp_forward', n, err, time_ms(kernel, reps=5),
+      time_ms(plain, reps=3),
+      time_ms(lambda: library_warp_train(x, e, ts, wops, warp_depth,
+                                         warp_skips), reps=5),
+      2 * warp_fwd_macs * n,
+      nbytes(x, e, *ts) + 4 * n * 8 * 4 + 2 * sum(
+          v.numel() for v in wops.values()))
+
+  go = randn(n, 8)
+  gjs = [randn(n, 8) for _ in range(nt)]
+  args = (x, e, ts, warp_params, go, gjs)
+  kw = dict(trunk_depth=warp_depth, skips=warp_skips)
+  # Compared with dx and d_tangents (need_dx); timed as the path runs it.
+  got = fused_warp.warp_mlp_backward(*args, **kw, need_dx=True)
+  again = fused_warp.warp_mlp_backward(*args, **kw, need_dx=True)
+  torch.cuda.synchronize()
+  want = fused_warp.warp_mlp_backward_reference(*args, **kw, need_dx=True)
+  err = _check_backward(f'warp_mlp_backward rows={n}',
+                        [got[0], got[1]] + got[2], [want[0], want[1]]
+                        + want[2], got[3], want[3])
+  _same_bits('warp_mlp_backward', got[3], again[3])
+  del got, again, want
+  results['warp_mlp_backward'] = report(
+      'warp_mlp_backward', n, err,
+      time_ms(lambda: fused_warp.warp_mlp_backward(*args, **kw,
+                                                   need_dx=False), reps=5),
+      time_ms(lambda: fused_warp.warp_mlp_backward_reference(
+          *args, **kw, need_dx=False), reps=3),
+      time_ms(library_warp_backward(x, e, ts, wops, warp_depth, warp_skips,
+                                    go, gjs), reps=5),
+      2 * warp_bwd_macs * n,
+      nbytes(x, e, *ts, go, *gjs) + 2 * sum(v.numel() for v in wops.values())
+      + n * f_embed * 4 + warp_param_bytes)
+  return results
+
+
 def _request_rays(index, rng):
   h = w = IMAGE_SIZE
   d = rng.randn(h, w, 3).astype(np.float32)
@@ -320,10 +629,11 @@ def phase_serve(model, state, rng):
     check((out['rgb'] >= 0).all() and (out['rgb'] <= 1).all(), 'rgb range')
     check((out['acc'] >= 0).all() and (out['acc'] <= 1 + 1e-4).all(),
           'acc range')
-  print(f'  launches in serve: {counts} (expected {expected} each)')
+  print(f'  launches in serve: {counts} (expected {expected} of each '
+        'serving kernel)')
   for name, count in counts.items():
-    check(count > 0, f'{name} was not launched while serving')
-    check(count == expected, f'{name}: {count} launches, expected {expected}')
+    want = expected if name in SERVE_KERNELS else 0
+    check(count == want, f'{name}: {count} launches, expected {want}')
   return counts, requests[0]
 
 
@@ -346,6 +656,173 @@ def phase_parity(model, state, rays):
       print(f'  {level}/{key}: max_abs_err {err:.3g}, within atol '
             f'{RENDER_ATOL} rtol {RENDER_RTOL}: {ok}')
       check(ok, f'{level}/{key} differs from the CPU plain render')
+
+
+def _train_batch(batch_size, background_points, seed):
+  """bench.py's fake_batch: unit directions, random colours and ids."""
+  rng = np.random.RandomState(seed)
+  directions = rng.randn(batch_size, 3).astype(np.float32)
+  directions /= np.linalg.norm(directions, axis=-1, keepdims=True)
+  ids = lambda high: rng.randint(0, high, (batch_size, 1))
+  return {
+      'origins': np.zeros((batch_size, 3), np.float32),
+      'directions': directions,
+      'rgb': rng.uniform(size=(batch_size, 3)).astype(np.float32),
+      'metadata': {'warp': ids(16), 'camera': ids(2), 'appearance': ids(16)},
+      'background_points': rng.randn(background_points, 3).astype(
+          np.float32),
+  }
+
+
+def _train_model(config, seed, device):
+  return nerf.construct_nerf(
+      config, **configs.BENCH_RENDER_IDS,
+      generator=torch.Generator().manual_seed(seed), device=device,
+      use_warp_jacobian=True, use_weights=True)
+
+
+TRAIN_KERNELS = ('nerf_mlp_forward', 'nerf_mlp_backward', 'warp_mlp_forward',
+                 'warp_mlp_backward')
+OUR_KERNEL_NAMES = ('nerf_mlp_kernel', 'nerf_bwd_rows_kernel',
+                    'warp_fwd_kernel', 'warp_bwd_rows_kernel',
+                    'dw_partial_kernel', 'dw_reduce_kernel')
+
+
+def _profile_step(step, state, batch, scalars, generator):
+  """Device time of one step by kernel, from torch.profiler."""
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    start = time.perf_counter()
+    step(generator, state, batch, scalars)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+  ours, total = {}, 0.0
+  for event in prof.key_averages():
+    if event.device_type != torch.autograd.DeviceType.CUDA:
+      continue
+    us = getattr(event, 'self_device_time_total', None)
+    if us is None:
+      us = event.self_cuda_time_total
+    total += us
+    for name in OUR_KERNEL_NAMES:
+      if name in event.key:
+        ours[name] = ours.get(name, 0.0) + us
+  return wall_ms, total / 1e3, {k: v / 1e3 for k, v in ours.items()}
+
+
+def phase_train(seed, device=torch.device('cuda', 0)):
+  config, train_config = configs.bench_train_config()
+  model, params = _train_model(config, seed, device)
+  state = training.create_train_state(params,
+                                      warp_alpha=configs.BENCH_WARP_ALPHA)
+  step = training.make_train_step(model, train_config, device)
+  batch = _train_batch(train_config.batch_size,
+                       train_config.background_points_batch_size, seed)
+  scalars = training.ScalarParams(**configs.BENCH_TRAIN_SCALARS)
+  generator = torch.Generator(device).manual_seed(seed)
+
+  start = time.perf_counter()
+  new_state, _ = step(generator, state, batch, scalars)
+  torch.cuda.synchronize()
+  print(f'  warm-up step: {(time.perf_counter() - start) * 1e3:.1f} ms')
+  torch.cuda.reset_peak_memory_stats()
+  fused_mlp.reset_launch_counts()
+  times = []
+  for _ in range(TRAIN_STEPS):
+    start = time.perf_counter()
+    new_state, stats = step(generator, new_state, batch, scalars)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - start) * 1e3)
+  counts = fused_mlp.launch_counts()
+  peak_gb = torch.cuda.max_memory_allocated() / 2**30
+  per_step = {'nerf_mlp_forward': 2, 'nerf_mlp_backward': 2,
+              'warp_mlp_forward': 3, 'warp_mlp_backward': 3,
+              'warp_trunk_forward': 0}
+  print(f'  launches in {TRAIN_STEPS} steps: {counts}')
+  for name, want in per_step.items():
+    check(counts[name] == want * TRAIN_STEPS,
+          f'{name}: {counts[name]} launches in {TRAIN_STEPS} steps, expected '
+          f'{want * TRAIN_STEPS}')
+  flat_stats = dict(_flat_tree(stats))
+  for key, value in flat_stats.items():
+    check(bool(torch.isfinite(value)), f'train stat {key} is not finite')
+  print('  stats of the last step: ' + ', '.join(
+      f'{k} {float(v):.5g}' for k, v in flat_stats.items()))
+  before = dict(_flat_tree(state.params))
+  changed = [k for k, v in _flat_tree(new_state.params)
+             if not torch.equal(v, before[k])]
+  unchanged = sorted(set(before) - set(changed))
+  print(f'  params changed: {len(changed)} of {len(before)} leaves; '
+        f'unchanged: {unchanged}')
+  check(all(k.startswith('appearance_encoder') for k in unchanged),
+        f'params that should train did not change: {unchanged}')
+  step_ms = float(np.median(times))
+  print(f'  step times: {[round(t, 2) for t in times]} ms; median '
+        f'{step_ms:.2f} ms, {train_config.batch_size / step_ms * 1e3:.1f} '
+        f'rays/s; max_memory_allocated {peak_gb:.2f} GiB')
+  try:
+    wall_ms, busy_ms, ours = _profile_step(step, new_state, batch, scalars,
+                                           generator)
+    print(f'  profiled step: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device '
+          f'busy ({1 - busy_ms / wall_ms:.3f} idle share); kernels of the '
+          f'port {sum(ours.values()):.2f} ms: '
+          + ', '.join(f'{k} {v:.2f}' for k, v in ours.items()))
+  except Exception as e:  # the breakdown is a reading, not a check
+    print(f'  profiled step: not measured ({type(e).__name__}: {e})')
+  return counts, dict(step_ms=step_ms, peak_gb=peak_gb)
+
+
+def _grad_check(got, want, tag):
+  """Per-leaf cosine and norm ratio, as tests/test_fused_train.py:166-182."""
+  got, want = dict(_flat_tree(got)), dict(_flat_tree(want))
+  ref = max(float(w.double().norm()) for w in want.values())
+  worst = (1.0, 1.0, '')
+  for leaf, w in want.items():
+    a, b = got[leaf].double().ravel(), w.double().ravel()
+    na, nb = float(a.norm()), float(b.norm())
+    if max(na, nb) < 1e-4 * ref:
+      continue
+    cos = float(a @ b) / (na * nb)
+    ratio = (na + 1e-12) / (nb + 1e-12)
+    worst = min(worst, (cos, ratio, leaf))
+    check(cos > GRAD_COSINE, f'{tag} {leaf}: cosine {cos}')
+    check(GRAD_NORM_RATIO[0] < ratio < GRAD_NORM_RATIO[1],
+          f'{tag} {leaf}: norm ratio {ratio}')
+  print(f'  {tag}: lowest cosine {worst[0]:.5f} ({worst[2]}, norm ratio '
+        f'{worst[1]:.4f})')
+
+
+def phase_train_parity(seed, device=torch.device('cuda', 0)):
+  config, train_config = configs.bench_train_config()
+  config = dataclasses.replace(config, use_stratified_sampling=False)
+  model, params = _train_model(config, seed, device)
+  batch = _train_batch(PARITY_TRAIN_RAYS, PARITY_BACKGROUND_POINTS, seed + 1)
+  rng = np.random.RandomState(seed + 2)
+  ids = np.asarray(model.warp_ids)[rng.randint(
+      0, len(model.warp_ids), (PARITY_BACKGROUND_POINTS, 1))]
+  noise = rng.randn(PARITY_BACKGROUND_POINTS, 3).astype(np.float32)
+  scalars = training.ScalarParams(**configs.BENCH_TRAIN_SCALARS)
+  out = {}
+  for name, dev in (('card', device), ('cpu', torch.device('cpu'))):
+    state = training.create_train_state(
+        _tree_to(params, dev), warp_alpha=configs.BENCH_WARP_ALPHA)
+    step = training.make_train_step(model, train_config, device=dev)
+    draws = (torch.from_numpy(ids).to(dev), torch.from_numpy(noise).to(dev))
+    start = time.perf_counter()
+    new_state, stats = step(None, state, batch, scalars, draws)
+    print(f'  {name} step: {(time.perf_counter() - start):.2f} s')
+    out[name] = (dict(_flat_tree(stats)), new_state.opt_state.mu)
+  stats_card, stats_cpu = out['card'][0], out['cpu'][0]
+  for key, want in stats_cpu.items():
+    got = float(stats_card[key])
+    want = float(want)
+    ok = abs(got - want) <= STATS_ATOL + STATS_RTOL * abs(want)
+    print(f'  {key}: card {got:.6g}, cpu {want:.6g}')
+    check(ok, f'train stat {key}: card {got} vs cpu {want}')
+  # The first Adam moment of a step from zero moments is 0.1 x gradient.
+  _grad_check(_tree_to(out['card'][1], 'cpu'), out['cpu'][1],
+              'gradients (card vs cpu)')
 
 
 def _tree_to(tree, device):
@@ -375,25 +852,43 @@ def main(argv=None):
         configs.bench_render_config(), **configs.BENCH_RENDER_IDS,
         generator=generator, device=device)
     state = evaluation.RenderState(params, warp_alpha=WARP_ALPHA)
-    kernels = run_phase('kernels', phase_kernels, model, device,
+    kernels = run_phase('kernels', lambda: {
+        **phase_kernels(model, device,
                         torch.Generator(device).manual_seed(args.seed),
-                        device_name)
-    counts, first_request = run_phase(
+                        device_name),
+        **phase_train_kernels(
+            model, device, torch.Generator(device).manual_seed(args.seed + 1),
+            device_name)})
+    serve_counts, first_request = run_phase(
         'serve', phase_serve, model, state, np.random.RandomState(args.seed))
     run_phase('parity', phase_parity, model, state, first_request)
+    train_counts, _ = run_phase('train', phase_train, args.seed)
+    run_phase('train_parity', phase_train_parity, args.seed)
   except Exception as e:  # report the failing phase, then fail the run
     print(f'FAILED: {type(e).__name__}: {e}', file=sys.stderr, flush=True)
     raise
-  sources = {'nerf_mlp_forward': 'nerfies_tpu/ops/fused_mlp.py:78',
-             'warp_trunk_forward': 'nerfies_tpu/ops/fused_mlp.py:645'}
+  sources = {
+      'nerf_mlp_forward': ('nerfies_tpu_torch/csrc/fused_mlp.cu',
+                           'nerfies_tpu/ops/fused_mlp.py:78'),
+      'warp_trunk_forward': ('nerfies_tpu_torch/csrc/fused_mlp.cu',
+                             'nerfies_tpu/ops/fused_mlp.py:645'),
+      'nerf_mlp_backward': ('nerfies_tpu_torch/csrc/fused_mlp_bwd.cu',
+                            'nerfies_tpu/ops/fused_mlp.py:432'),
+      'warp_mlp_forward': ('nerfies_tpu_torch/csrc/fused_warp.cu',
+                           'nerfies_tpu/ops/fused_warp.py:147'),
+      'warp_mlp_backward': ('nerfies_tpu_torch/csrc/fused_warp.cu',
+                            'nerfies_tpu/ops/fused_warp.py:207'),
+  }
   lines = []
-  for name, replaces in sources.items():
+  for name, (source, replaces) in sources.items():
     k = kernels[name]
+    by_path = {'serve': serve_counts.get(name, 0),
+               'train': train_counts.get(name, 0)}
     lines.append({
-        'name': name, 'route': 'cuda',
-        'source': 'nerfies_tpu_torch/csrc/fused_mlp.cu', 'replaces': replaces,
-        'launches': counts[name], 'max_abs_err': k['max_abs_err'],
-        'ms': k['ms'], 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
+        'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+        'launches': sum(by_path.values()), 'launches_by_path': by_path,
+        'max_abs_err': k['max_abs_err'], 'ms': k['ms'],
+        'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
         'bound_by': k['bound_by'], 'library_ms': k['library_ms'],
         'rows': k['rows']})
   print(f'total: {time.perf_counter() - total:.2f} s '

@@ -1,15 +1,16 @@
-"""Model configuration for the port, without gin.
+"""Model and training configuration for the port, without gin.
 
-A plain dataclass with the fields of nerfies_tpu/configs.py:30-90 that
-serving reads, under the same names and defaults. The sigma activation is
-named by string ('relu', 'softplus', ...) instead of a Flax function.
-Serving always runs the MLPs in bf16 with ReLU, as the JAX fused path does,
-so `activation`, `use_bfloat16` and the training-only fields are left
-out. Parsing the configs/*.gin zoo waits for the port of minigin.
+Plain dataclasses with the fields of nerfies_tpu/configs.py that the
+ported paths read, under the same names and defaults. The sigma activation
+is named by string ('relu', 'softplus', ...) instead of a Flax function.
+The port always runs the MLPs through the fused kernels in bf16 with
+ReLU, as the JAX fused path does, so `activation`, `use_bfloat16`,
+`use_fused_mlp` and `use_fused_warp` are left out. Parsing the
+configs/*.gin zoo waits for the port of minigin.
 """
 
 import dataclasses
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch.nn.functional as F
 
@@ -30,6 +31,7 @@ class ModelConfig:
   use_white_background: bool = False
   use_stratified_sampling: bool = True
   use_sample_at_infinity: bool = True
+  noise_std: Optional[float] = None
   rgb_padding: float = 0.0
 
   nerf_trunk_depth: int = 8
@@ -61,6 +63,17 @@ class ModelConfig:
   warp_metadata_encoder_type: str = 'glo'
   warp_kwargs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
+
+@dataclasses.dataclass
+class TrainConfig:
+  """The fields of nerfies_tpu.configs.TrainConfig that train_step reads."""
+  batch_size: int
+  use_elastic_loss: bool = False
+  elastic_reduce_method: str = 'weight'  # 'weight' | 'median'
+  elastic_loss_type: str = 'log_svals'
+  use_background_loss: bool = False
+  background_points_batch_size: int = 16384
+  use_warp_reg_loss: bool = False
 
 
 def bench_render_config() -> ModelConfig:
@@ -95,3 +108,29 @@ def bench_render_config() -> ModelConfig:
 # The ids and clip range bench.py builds the render model with.
 BENCH_RENDER_IDS = dict(appearance_ids=tuple(range(16)), camera_ids=(0, 1),
                         warp_ids=tuple(range(16)), near=0.1, far=2.0)
+
+
+def bench_train_config() -> Tuple[ModelConfig, TrainConfig]:
+  """The training workload of bench.py (bench.py:57-107).
+
+  The render model of `bench_render_config` with stratified sampling on,
+  and the train config of bench.py's build_workload: batch 6144 rays,
+  elastic loss 'log_svals' reduced by 'weight' over the dense coarse
+  Jacobians, background loss over 16,384 points. Build the model with
+  BENCH_RENDER_IDS and use_warp_jacobian=True, use_weights=True, and step
+  it with BENCH_TRAIN_SCALARS at warp alpha BENCH_WARP_ALPHA
+  (bench.py:243-246).
+  """
+  model = dataclasses.replace(bench_render_config(),
+                              use_stratified_sampling=True)
+  train = TrainConfig(batch_size=6144, use_elastic_loss=True,
+                      elastic_reduce_method='weight',
+                      elastic_loss_type='log_svals',
+                      use_background_loss=True,
+                      background_points_batch_size=16384)
+  return model, train
+
+
+BENCH_TRAIN_SCALARS = dict(learning_rate=1e-3, elastic_loss_weight=1e-3,
+                           background_loss_weight=1.0)
+BENCH_WARP_ALPHA = 6.0

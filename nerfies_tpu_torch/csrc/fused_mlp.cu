@@ -31,135 +31,13 @@
 // The arguments travel as one __grid_constant__ struct, so the trunk can
 // index its per-layer pointer arrays without a copy to local memory.
 //
-// Built with one nvcc call into a plain C shared library (ops/_build.py)
-// and called through ctypes (ops/fused_mlp.py).
+// The building blocks (tiles, weight slices, epilogues) are in
+// mlp_common.cuh. Built by ops/_build.py into a plain C shared library and
+// called through ctypes (ops/fused_mlp.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "mlp_common.cuh"
 
 namespace {
-
-constexpr int BM = 64;          // rows per block
-constexpr int NTHREADS = 256;   // 8 warps: 4 row groups x 2 column groups
-constexpr int BK = 32;          // weight rows staged per slice
-constexpr int SPAD = 8;         // shared-memory row padding (bf16 elements)
-constexpr int CPAD = 64;        // input columns, zero-padded
-constexpr int LDX = CPAD + SPAD;
-constexpr int HEAD = 16;        // head columns, zero-padded
-constexpr int OUT_COLS = 8;     // head columns written out
-constexpr int MAXD = 16;        // most trunk layers
-
-template <int N>
-struct Acc {
-  static constexpr int TILES = N / 16;
-  static constexpr int PER_WARP = (TILES + 1) / 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[PER_WARP];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < PER_WARP; ++j) wmma::fill_fragment(f[j], 0.0f);
-  }
-};
-
-// acc += A[BM x K] @ W[K x N]. A lies in shared memory with row stride
-// lda; W is row-major (Flax's (in, out) layout) in global memory, K a
-// multiple of 16, N a multiple of 16. Every thread of the block calls it.
-template <int N>
-__device__ void accumulate(Acc<N>& acc, const bf16* a_s, int lda, int k,
-                           const bf16* __restrict__ w_g, bf16* w_s) {
-  constexpr int LDW = N + SPAD;
-  constexpr int VPR = N / 8;  // 16-byte vectors per weight row
-  const int warp = threadIdx.x >> 5;
-  const int rg = warp & 3, cg = warp >> 2;
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    const int kk = min(BK, k - k0);
-    __syncthreads();  // the previous slice (or layer) is consumed
-    for (int v = threadIdx.x; v < kk * VPR; v += NTHREADS) {
-      const int r = v / VPR, c = (v % VPR) * 8;
-      *reinterpret_cast<uint4*>(w_s + r * LDW + c) =
-          *reinterpret_cast<const uint4*>(w_g + (size_t)(k0 + r) * N + c);
-    }
-    __syncthreads();
-    for (int ks = 0; ks < kk; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_s + rg * 16 * lda + k0 + ks, lda);
-#pragma unroll
-      for (int j = 0; j < Acc<N>::PER_WARP; ++j) {
-        const int t = cg + 2 * j;
-        if (t < Acc<N>::TILES) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, w_s + ks * LDW + t * 16, LDW);
-          wmma::mma_sync(acc.f[j], a, b, acc.f[j]);
-        }
-      }
-    }
-  }
-}
-
-// out[BM x N] (shared, bf16) = act(acc + row_bias + bias). row_bias is the
-// block's first row in global memory (row stride N) or null.
-template <int N>
-__device__ void epilogue_bf16(Acc<N>& acc, const bf16* __restrict__ bias,
-                              const bf16* __restrict__ row_bias,
-                              int rows_valid, bool relu, bf16* out, int ldo,
-                              float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp & 3, cg = warp >> 2;
-  float* s = scratch + warp * 256;
-#pragma unroll
-  for (int j = 0; j < Acc<N>::PER_WARP; ++j) {
-    const int t = cg + 2 * j;
-    if (t < Acc<N>::TILES) {
-      wmma::store_matrix_sync(s, acc.f[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rg * 16 + (e >> 4), c = t * 16 + (e & 15);
-        float v = s[e];
-        if (row_bias != nullptr && r < rows_valid)
-          v += __bfloat162float(row_bias[(size_t)r * N + c]);
-        v += __bfloat162float(bias[c]);
-        if (relu) v = fmaxf(v, 0.0f);
-        out[r * ldo + c] = __float2bfloat16(v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// out[rows_valid x OUT_COLS] (global, f32) = acc + bias, for a HEAD-wide
-// product: one 16-column tile, held by the warps of column group 0.
-__device__ void epilogue_head(Acc<HEAD>& acc, const bf16* __restrict__ bias,
-                              int rows_valid, float* __restrict__ out,
-                              float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp & 3, cg = warp >> 2;
-  if (cg != 0) return;
-  float* s = scratch + warp * 256;
-  wmma::store_matrix_sync(s, acc.f[0], 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32) {
-    const int r = rg * 16 + (e >> 4), c = e & 15;
-    if (c < OUT_COLS && r < rows_valid)
-      out[(size_t)r * OUT_COLS + c] = s[e] + __bfloat162float(bias[c]);
-  }
-  __syncwarp();
-}
-
-// x[row0 .. row0 + BM) (global f32, N x c_in) -> bf16 tile, zero-padded.
-__device__ void load_x(const float* __restrict__ x, int c_in, int row0,
-                       int rows_valid, bf16* xs) {
-  for (int e = threadIdx.x; e < BM * CPAD; e += NTHREADS) {
-    const int r = e / CPAD, c = e % CPAD;
-    float v = 0.0f;
-    if (r < rows_valid && c < c_in) v = x[(size_t)(row0 + r) * c_in + c];
-    xs[r * LDX + c] = __float2bfloat16(v);
-  }
-}
 
 template <int W>
 constexpr size_t smem_bytes() {
@@ -231,7 +109,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) nerf_mlp_kernel(const __grid_cons
 
   const int row0 = blockIdx.x * BM;
   const int rows_valid = min(BM, a.n - row0);
-  load_x(a.x, a.c_in, row0, rows_valid, xs);
+  load_tile<CPAD>(a.x, a.c_in, row0, rows_valid, xs, LDX, nullptr);
   bf16* h = trunk<W>(a.w, a.wx, a.b, nullptr, a.depth, a.skip_mask, row0,
                      rows_valid, xs, h0, h1, w_s, scratch);
   bf16* other = (h == h0) ? h1 : h0;
@@ -301,7 +179,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) warp_trunk_kernel(const __grid_co
 
   const int row0 = blockIdx.x * BM;
   const int rows_valid = min(BM, a.n - row0);
-  load_x(a.x, a.c_in, row0, rows_valid, xs);
+  load_tile<CPAD>(a.x, a.c_in, row0, rows_valid, xs, LDX, nullptr);
   bf16* h = trunk<W>(a.w, a.wx, a.b, a.rb, a.depth, a.skip_mask, row0,
                      rows_valid, xs, h0, h1, w_s, scratch);
   Acc<HEAD> acc;

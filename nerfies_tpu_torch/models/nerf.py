@@ -2,9 +2,11 @@
 
 `construct_nerf` returns the nested-dict param tree with exactly the names
 and shapes of nerfies_tpu.models.nerf.construct_nerf, drawn from a
-torch.Generator. `NerfModel` holds that tree and the architecture that
-fast_render reads; it has no forward of its own (serving goes through
-fast_render.render_rays, as in the JAX package).
+torch.Generator; its leaves are trainable (requires_grad). `NerfModel`
+holds that tree and the architecture that fast_render and fused_train
+read; its only computation is `apply_warp`. Serving goes through
+fast_render.render_rays and training through fused_train.model_forward,
+as the JAX package's fused paths do.
 """
 
 import dataclasses
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from nerfies_tpu_torch import configs
+from nerfies_tpu_torch import fused_train
 from nerfies_tpu_torch import resolve_device
 from nerfies_tpu_torch.models import glo
 from nerfies_tpu_torch.models import modules
@@ -22,10 +25,10 @@ from nerfies_tpu_torch.ops import encoding
 
 
 def _to_module(tree: dict) -> nn.Module:
-  """Nested dict of tensors -> ModuleDict of ParameterDicts (no grads)."""
+  """Nested dict of tensors -> ModuleDict of trainable ParameterDicts."""
   if all(isinstance(v, torch.Tensor) for v in tree.values()):
     return nn.ParameterDict(
-        {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
+        {k: nn.Parameter(v, requires_grad=True) for k, v in tree.items()})
   return nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
 
 
@@ -39,12 +42,15 @@ class NerfModel(nn.Module):
   """Holds the param tree and the static architecture of one NeRF model.
 
   The attributes are those of the Flax NerfModel: every field of the
-  config, plus near/far and the id ranges of the GLO tables.
+  config, near/far, the id ranges of the GLO tables, and the train-time
+  switches use_warp_jacobian (the coarse level returns dense warp
+  Jacobians) and use_weights (the fine level returns its weights).
   """
 
   def __init__(self, config: configs.ModelConfig, params: dict,
                near: float, far: float, appearance_ids: Sequence[int],
-               camera_ids: Sequence[int], warp_ids: Sequence[int]):
+               camera_ids: Sequence[int], warp_ids: Sequence[int],
+               use_warp_jacobian: bool = False, use_weights: bool = False):
     super().__init__()
     for field in dataclasses.fields(config):
       setattr(self, field.name, getattr(config, field.name))
@@ -55,6 +61,8 @@ class NerfModel(nn.Module):
     self.appearance_ids = tuple(appearance_ids)
     self.camera_ids = tuple(camera_ids)
     self.warp_ids = tuple(warp_ids)
+    self.use_warp_jacobian = use_warp_jacobian
+    self.use_weights = use_weights
     self.metadata_encoded = False
     self.tree = _to_module(params)
 
@@ -66,6 +74,18 @@ class NerfModel(nn.Module):
   @property
   def sigma_activation_fn(self):
     return configs.ACTIVATIONS[self.sigma_activation]
+
+  def apply_warp(self, params: dict, points: torch.Tensor,
+                 warp_metadata: torch.Tensor, warp_extra: dict,
+                 return_jacobian: bool = False) -> dict:
+    """Warps an arbitrary (B, S, 3) point set with the shared warp params.
+
+    The counterpart of the Flax NerfModel.apply_warp, through the fused
+    warp kernel (fused_train.apply_warp): {'warped_points'} and, with
+    return_jacobian, the (3, 3, B, S) 'jacobian'.
+    """
+    return fused_train.apply_warp(self, params, points, warp_metadata,
+                                  warp_extra, return_jacobian)
 
 
 def param_tree(config: configs.ModelConfig,
@@ -133,7 +153,9 @@ def construct_nerf(config: configs.ModelConfig,
                    far: float,
                    *,
                    generator: Optional[torch.Generator] = None,
-                   device='cuda') -> Tuple[NerfModel, dict]:
+                   device='cuda',
+                   use_warp_jacobian: bool = False,
+                   use_weights: bool = False) -> Tuple[NerfModel, dict]:
   """Builds a NerfModel from a ModelConfig with freshly drawn parameters.
 
   The counterpart of nerfies_tpu.models.nerf.construct_nerf: the JAX key
@@ -149,5 +171,5 @@ def construct_nerf(config: configs.ModelConfig,
   params = _tree_to(param_tree(config, appearance_ids, camera_ids, warp_ids,
                                generator), device)
   model = NerfModel(config, params, near, far, appearance_ids, camera_ids,
-                    warp_ids)
+                    warp_ids, use_warp_jacobian, use_weights)
   return model, model.params

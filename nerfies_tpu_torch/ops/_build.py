@@ -1,11 +1,12 @@
 """Builds the CUDA sources into one shared library at first use.
 
-One `nvcc` call compiles every csrc/*.cu file into a plain C shared
-library, which is loaded with ctypes: no PyTorch headers and no
-torch.utils.cpp_extension, so a fresh build takes seconds, not minutes.
-The library lands in _build/<hash>/, where <hash> covers the sources and
-the flags, so an edit rebuilds and an unchanged tree reuses the library.
-_build/ is listed in .gitignore. Nothing here runs at import time.
+One `nvcc -c` per csrc/*.cu file, all started together, then one link into
+a plain C shared library, which is loaded with ctypes: no PyTorch headers
+and no torch.utils.cpp_extension, so a fresh build takes seconds, not
+minutes. The library lands in _build/<hash>/, where <hash> covers the
+sources (the .cuh headers too) and the flags, so an edit rebuilds and an
+unchanged tree reuses the library. _build/ is listed in .gitignore.
+Nothing here runs at import time.
 """
 
 import ctypes
@@ -23,7 +24,7 @@ SOURCE_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 LIB_NAME = 'libnerfies_kernels.so'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -71,19 +72,39 @@ def build() -> str:
     return path
   out_dir = os.path.dirname(path)
   os.makedirs(out_dir, exist_ok=True)
-  tmp = f'{path}.{os.getpid()}.tmp'
-  cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp,
-         *[s for s in sources() if s.endswith('.cu')]]
+  nvcc = find_nvcc()
+  tag = f'{os.getpid()}.tmp'
   start = time.perf_counter()
-  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+  compiles = []
+  for src in [s for s in sources() if s.endswith('.cu')]:
+    obj = os.path.join(out_dir, f'{os.path.basename(src)}.{tag}.o')
+    cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, src]
+    compiles.append((cmd, obj, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+  log, failed = [], []
+  for cmd, _, proc in compiles:
+    output, _ = proc.communicate()
+    log.append(f'{" ".join(cmd)}\nexit {proc.returncode}\n{output}')
+    if proc.returncode != 0:
+      failed.append(output)
+  tmp = f'{path}.{tag}'
+  if not failed:
+    cmd = [nvcc, '-shared', '-o', tmp] + [obj for _, obj, _ in compiles]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    log.append(f'{" ".join(cmd)}\nexit {proc.returncode}\n'
+               f'{proc.stdout}{proc.stderr}')
+    if proc.returncode != 0:
+      failed.append(proc.stderr)
   seconds = time.perf_counter() - start
+  for _, obj, _ in compiles:
+    if os.path.exists(obj):
+      os.remove(obj)
   with open(os.path.join(out_dir, 'build.log'), 'w') as f:
-    f.write(f'{" ".join(cmd)}\n{seconds:.2f} s, exit {proc.returncode}\n')
-    f.write(proc.stdout + proc.stderr)
-  if proc.returncode != 0:
+    f.write(f'{seconds:.2f} s, exit {1 if failed else 0}\n' + '\n'.join(log))
+  if failed:
     if os.path.exists(tmp):
       os.remove(tmp)
-    raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{proc.stderr}')
+    raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
   os.replace(tmp, path)
   return path
 
@@ -105,6 +126,15 @@ def load() -> ctypes.CDLL:
       lib.nerf_mlp_forward.restype = i32
       lib.warp_trunk_forward.argtypes = [ptr] + [i32] * 6 + [ptr]
       lib.warp_trunk_forward.restype = i32
+      lib.nerf_mlp_backward_rows.argtypes = [ptr] + [i32] * 9 + [ptr]
+      lib.nerf_mlp_backward_rows.restype = i32
+      lib.warp_train_forward.argtypes = [ptr] + [i32] * 8 + [ptr]
+      lib.warp_train_forward.restype = i32
+      lib.warp_train_backward_rows.argtypes = [ptr] + [i32] * 12 + [ptr]
+      lib.warp_train_backward_rows.restype = i32
+      lib.weight_grad.argtypes = [ptr, ptr, i32, i32, ptr, ctypes.c_longlong,
+                                  ptr, i32, i32, ptr]
+      lib.weight_grad.restype = i32
       lib.fused_mlp_error_string.argtypes = [i32]
       lib.fused_mlp_error_string.restype = ctypes.c_char_p
       _lib = lib

@@ -61,6 +61,56 @@ def posenc(x: torch.Tensor,
   return features
 
 
+def posenc_with_tangents(x: torch.Tensor,
+                         num_freqs: int,
+                         min_freq_log2: float = 0.0,
+                         max_freq_log2: Optional[float] = None,
+                         scale: float = 1.0,
+                         use_identity: bool = True,
+                         alpha=None):
+  """`posenc` and its derivatives along each input axis.
+
+  The tangents are the JVP columns that nerfies_tpu/fused_train.py:88-99
+  takes with `jax.linearize`: d posenc(x) / d x_j for each of the C input
+  channels, written out analytically (sin' = cos, times scale * freq, under
+  the same easing window; the identity channels give e_j).
+
+  Returns:
+    (posenc(x), [tangent_j for j < C]), each (..., posenc width).
+  """
+  if num_freqs == 0:
+    raise ValueError('posenc_with_tangents needs num_freqs > 0')
+  num_channels = x.shape[-1]
+  freqs = freq_bands(num_freqs, min_freq_log2, max_freq_log2,
+                     dtype=x.dtype, device=x.device)
+  angles = scale * x[..., None, None, :] * freqs[:, None, None]
+  four = torch.cat([angles, angles + 0.5 * math.pi], dim=-2)
+  features = torch.sin(four)
+  slopes = torch.cos(four) * (scale * freqs)[:, None, None]
+  if alpha is not None:
+    window = cosine_easing_window(num_freqs, alpha, min_freq_log2,
+                                  max_freq_log2, device=x.device)
+    window = window.to(x.dtype)[:, None, None]
+    features = features * window
+    slopes = slopes * window
+  width = 2 * num_freqs * num_channels
+  lead = x.shape[:-1]
+  pe = features.reshape(*lead, width)
+  tangents = []
+  for j in range(num_channels):
+    t = torch.zeros_like(slopes)
+    t[..., j] = slopes[..., j]
+    t = t.reshape(*lead, width)
+    if use_identity:
+      ident = torch.zeros_like(x)
+      ident[..., j] = 1.0
+      t = torch.cat([ident, t], dim=-1)
+    tangents.append(t)
+  if use_identity:
+    pe = torch.cat([x, pe], dim=-1)
+  return pe, tangents
+
+
 def cosine_easing_window(num_freqs: int,
                          alpha,
                          min_freq_log2: float = 0.0,

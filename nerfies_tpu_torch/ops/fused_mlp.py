@@ -1,12 +1,16 @@
 """The NeRF MLP and the warp trunk as fused kernels, with their plain versions.
 
-Port of the two serving kernels of nerfies_tpu/ops/fused_mlp.py:
-`nerf_mlp_forward` (:78) and `warp_trunk_forward` (:645), with the same
-arguments and output contracts. On a CUDA tensor each wrapper launches its
-hand-written kernel from csrc/fused_mlp.cu (built by ops/_build.py) and
-counts the launch in its `launches` attribute; on a CPU tensor it runs the
-plain PyTorch version (`nerf_mlp_reference`, `warp_trunk_reference`). It
-never falls back from one to the other.
+Port of three kernels of nerfies_tpu/ops/fused_mlp.py: `nerf_mlp_forward`
+(:78), `warp_trunk_forward` (:645) and `_nerf_train_bwd` (:432), the
+backward of `nerf_mlp_train`, with the same arguments and output
+contracts. On a CUDA tensor each wrapper launches its hand-written kernel
+(csrc/fused_mlp.cu, csrc/fused_mlp_bwd.cu with csrc/weight_grad.cu, built
+by ops/_build.py) and counts the launch in its `launches` attribute; on a
+CPU tensor it runs the plain PyTorch version (`nerf_mlp_reference`,
+`warp_trunk_reference`, `nerf_mlp_backward_reference`). It never falls
+back from one to the other. `nerf_mlp_train` is the autograd Function of
+the training path: its forward is `nerf_mlp_forward`, its backward
+`nerf_mlp_backward`.
 
 Numeric contract, shared by the kernels and the plain versions: bf16
 operands and f32 accumulation; each layer's bias is bf16 and is added in
@@ -437,12 +441,455 @@ def warp_trunk_forward(x: torch.Tensor,
 warp_trunk_forward.launches = 0
 
 
+
+
+# ------------------------------------------------------ training backward
+#
+# nerf_mlp_train's backward: the VJP of nerf_mlp_forward with the rounding
+# points of nerfies_tpu/ops/fused_mlp.py:432 _nerf_train_bwd: the
+# activations are recomputed in bf16; g_alpha, g_rgb and every cotangent
+# that feeds a product are rounded to bf16; ReLU masks compare the bf16
+# activation with 0 in f32; dx sums the skip layer's and layer 0's f32
+# products in that order; dW and the bias gradients are f32 sums of
+# products of bf16 values.
+
+# Rows per pass of the backward kernels: the workspace of the NeRF MLP's
+# row pass holds 9,920 bytes per row at the bench widths, so 2.6 GB for a
+# chunk of 262,144 rows.
+_NERF_BWD_CHUNK = 262144
+# Blocks the weight-gradient pass aims for per SM, through its row splits.
+_DW_BLOCKS_PER_SM = 4
+_DW_ALIGN = 64  # floats between job offsets in the flat dW buffer
+
+
+def _nerf_plain_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
+                    g_alpha, g_rgb):
+  """Plain version of the backward: (dx, drb or None, {name: f32 dW})."""
+  if ops.rgb_hidden is None:
+    raise ValueError('nerf_mlp_backward: needs an rgb hidden layer, as '
+                     '_nerf_train_bwd does')
+  xt = x.to(torch.bfloat16)
+  hs = []
+  h = None
+  for i in range(trunk_depth):
+    acc = _dot(xt if h is None else h, ops.trunk_w[i])
+    if i in ops.trunk_wx:
+      acc = acc + _dot(xt, ops.trunk_wx[i])
+    h = _relu_bf16(acc + ops.trunk_b[i].float())
+    hs.append(h)
+  bt = h
+  if ops.bottleneck is not None:
+    bw, bb = ops.bottleneck
+    bt = (_dot(h, bw) + bb.float()).to(torch.bfloat16)
+  rw, rbias = ops.rgb_hidden
+  r_src = bt if ops.rgb_from_bt else h
+  a_src = bt if ops.alpha_from_bt else h
+  acc = _dot(r_src, rw) + rbias.float()
+  if rgb_row_bias is not None:
+    acc = acc + rgb_row_bias.to(torch.bfloat16).float()
+  y = _relu_bf16(acc)
+
+  dws = {}
+  ga = g_alpha.to(torch.bfloat16)
+  gr = g_rgb.to(torch.bfloat16)
+  gy = (_dot(gr, ops.rgb_w.t()) * (y.float() > 0)).to(torch.bfloat16)
+  dws['rgb_logit/w'] = _dot(y.t(), gr)
+  dws['rgb_logit/b'] = gr.float().sum(0)
+  drb = gy.float() if rgb_row_bias is not None else None
+  dws['rgb_hidden/w'] = _dot(r_src.t(), gy)
+  dws['rgb_hidden/b'] = gy.float().sum(0)
+  dws['alpha_logit/w'] = _dot(a_src.t(), ga)
+  dws['alpha_logit/b'] = ga.float().sum(0)
+  g_rgb_in = _dot(gy, rw.t())
+  g_alpha_in = _dot(ga, ops.alpha_w.t())
+  if ops.bottleneck is not None:
+    zero = torch.zeros_like(g_rgb_in)
+    g_bt = ((g_rgb_in if ops.rgb_from_bt else zero)
+            + (g_alpha_in if ops.alpha_from_bt else zero)).to(torch.bfloat16)
+    g_h = ((zero if ops.rgb_from_bt else g_rgb_in)
+           + (zero if ops.alpha_from_bt else g_alpha_in)
+           + _dot(g_bt, ops.bottleneck[0].t())).to(torch.bfloat16)
+    dws['bottleneck/w'] = _dot(hs[-1].t(), g_bt)
+    dws['bottleneck/b'] = g_bt.float().sum(0)
+  else:
+    g_h = (g_rgb_in + g_alpha_in).to(torch.bfloat16)
+
+  gx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+  for i in range(trunk_depth - 1, -1, -1):
+    g_pre = (g_h.float() * (hs[i].float() > 0)).to(torch.bfloat16)
+    src = xt if i == 0 else hs[i - 1]
+    dws[f'trunk_{i}/w'] = _dot(src.t(), g_pre)
+    dws[f'trunk_{i}/b'] = g_pre.float().sum(0)
+    if i in ops.trunk_wx:
+      dws[f'trunk_{i}/wx'] = _dot(xt.t(), g_pre)
+      gx = gx + _dot(g_pre, ops.trunk_wx[i].t())
+    if i == 0:
+      gx = gx + _dot(g_pre, ops.trunk_w[0].t())
+    else:
+      g_h = _dot(g_pre, ops.trunk_w[i].t()).to(torch.bfloat16)
+  return gx, drb, dws
+
+
+def _nerf_grads_to_tree(dws, params, ops: NerfOperands, trunk_depth, skips):
+  """Scatters packed dW into the param tree's shapes (fused_mlp.py:591-637).
+
+  The condition rows of the rgb hidden and alpha heads get zeros here:
+  their gradient reaches them through the caller's row-bias product.
+  """
+  width = ops.width
+  tree = {}
+  for i in range(trunk_depth):
+    kernel = dws[f'trunk_{i}/w']
+    if i != 0 and i in skips:
+      kernel = torch.cat([kernel, dws[f'trunk_{i}/wx']], 0)
+    tree[f'trunk_hidden_{i}'] = {'kernel': kernel,
+                                 'bias': dws[f'trunk_{i}/b']}
+  if ops.bottleneck is not None:
+    tree['bottleneck'] = {'kernel': dws['bottleneck/w'],
+                          'bias': dws['bottleneck/b']}
+
+  def with_condition_rows(grad, rows):
+    if rows == width:
+      return grad
+    return torch.cat([grad, grad.new_zeros(rows - width, grad.shape[1])], 0)
+
+  tree['rgb_hidden_0'] = {
+      'kernel': with_condition_rows(
+          dws['rgb_hidden/w'], params['rgb_hidden_0']['kernel'].shape[0]),
+      'bias': dws['rgb_hidden/b']}
+  rgb_ch = params['rgb_logit']['kernel'].shape[1]
+  tree['rgb_logit'] = {'kernel': dws['rgb_logit/w'][:, :rgb_ch],
+                       'bias': dws['rgb_logit/b'][:rgb_ch]}
+  alpha_k = params['alpha_logit']['kernel']
+  tree['alpha_logit'] = {
+      'kernel': with_condition_rows(dws['alpha_logit/w'][:, :alpha_k.shape[1]],
+                                    alpha_k.shape[0]),
+      'bias': dws['alpha_logit/b'][:alpha_k.shape[1]]}
+  return tree
+
+
+def nerf_mlp_backward_reference(x, rgb_row_bias, params, g_alpha, g_rgb, *,
+                                trunk_depth: int, skips: Tuple[int, ...]):
+  """Plain PyTorch version of `nerf_mlp_backward` (same contract)."""
+  ops = pack_nerf_mlp(params, x.shape[1], trunk_depth, skips)
+  dx, drb, dws = _nerf_plain_bwd(x, rgb_row_bias, ops, trunk_depth,
+                                 g_alpha.float(), g_rgb.float())
+  return dx, drb, _nerf_grads_to_tree(dws, params, ops, trunk_depth,
+                                      tuple(skips))
+
+
+class _WeightGrads:
+  """The jobs of weight_grad.cu and the flat f32 buffer they fill.
+
+  A job is one weight: dW (m x n) = A^T @ G over `rows` rows of two bf16
+  workspace arrays, plus the column sums of G over its first `bias_rows`
+  rows when the weight has a bias. Offsets are multiples of _DW_ALIGN.
+  """
+
+  def __init__(self):
+    self.jobs = []
+    self.size = 0
+
+  def _take(self, count):
+    offset = self.size
+    self.size += -(-count // _DW_ALIGN) * _DW_ALIGN
+    return offset
+
+  def add(self, name, a, g, bias_name=None):
+    m, n = a.shape[1], g.shape[1]
+    out = self._take(m * n)
+    bias_out = self._take(n) if bias_name else 0
+    self.jobs.append(dict(name=name, bias_name=bias_name, a=a, g=g, m=m, n=n,
+                          out=out, bias_out=bias_out))
+
+  def run(self, lib, rows_of, bias_rows_of, partial, flat, accumulate,
+          device, stream):
+    """One chunk: rows_of(job) rows, bias over bias_rows_of(job) rows."""
+    ptrs = _pointer_array([t for j in self.jobs for t in (j['a'], j['g'])])
+    ints = []
+    for j in self.jobs:
+      ints += [j['a'].shape[1], j['g'].shape[1], j['m'], j['n'], rows_of(j),
+               bias_rows_of(j) if j['bias_name'] else 0, j['out'],
+               j['bias_out']]
+    int_array = (ctypes.c_int * len(ints))(*ints)
+    splits = partial.numel() // self.size
+    rc = lib.weight_grad(ctypes.addressof(ptrs), ctypes.addressof(int_array),
+                         len(self.jobs), splits, partial.data_ptr(),
+                         self.size, flat.data_ptr(), int(accumulate),
+                         device.index or 0, stream)
+    _check_launch(lib, rc, 'weight_grad')
+
+  def splits(self, device):
+    tiles = sum(-(-j['m'] // 64) * -(-j['n'] // 64) for j in self.jobs)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(64, -(-_DW_BLOCKS_PER_SM * sms // tiles)))
+
+  def views(self, flat):
+    out = {}
+    for j in self.jobs:
+      out[j['name']] = flat[j['out']:j['out'] + j['m'] * j['n']].view(
+          j['m'], j['n'])
+      if j['bias_name']:
+        out[j['bias_name']] = flat[j['bias_out']:j['bias_out'] + j['n']]
+    return out
+
+
+def _workspace(device, shapes):
+  """One bf16 allocation cut into row-major arrays of the given shapes."""
+  sizes = [-(-r * c // 8) * 8 for r, c in shapes]  # 16-byte aligned views
+  buf = torch.empty(sum(sizes), dtype=torch.bfloat16, device=device)
+  views, offset = [], 0
+  for (r, c), size in zip(shapes, sizes):
+    views.append(buf[offset:offset + r * c].view(r, c))
+    offset += size
+  return views
+
+
+def _transposed(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+  return None if t is None else t.t().contiguous()
+
+
+def _launch_nerf_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
+                     g_alpha, g_rgb, chunk=_NERF_BWD_CHUNK):
+  name = 'nerf_mlp_backward'
+  _check_rows(x, name)
+  if (ops.width, ops.rgb_width) not in _NERF_WIDTHS:
+    raise ValueError(f'{name}: kernel built for (width, rgb width) in '
+                     f'{_NERF_WIDTHS}, got {(ops.width, ops.rgb_width)}')
+  if ops.rgb_hidden is None:
+    raise ValueError(f'{name}: needs an rgb hidden layer')
+  if not 1 <= trunk_depth <= _MAX_DEPTH:
+    raise ValueError(f'{name}: trunk depth must be in [1, {_MAX_DEPTH}]')
+  n, c_in = x.shape
+  width, rgb_width = ops.width, ops.rgb_width
+  device = x.device
+  x = x.float().contiguous()
+  for g in (g_alpha, g_rgb):
+    if g.device != device or tuple(g.shape) != (n, _OUT_COLS):
+      raise ValueError(f'{name}: cotangents must be ({n}, {_OUT_COLS}) on '
+                       f'{device}, got {tuple(g.shape)} on {g.device}')
+  g_alpha = g_alpha.float().contiguous()
+  g_rgb = g_rgb.float().contiguous()
+  if rgb_row_bias is not None:
+    rgb_row_bias = _check_row_bias(rgb_row_bias, x, rgb_width, name)
+
+  w = [_pad_rows(ops.trunk_w[0], _PE_PAD).contiguous()] + ops.trunk_w[1:]
+  wx = [(_pad_rows(ops.trunk_wx[i], _PE_PAD).contiguous()
+         if i in ops.trunk_wx else None) for i in range(_MAX_DEPTH)]
+  pad = [None] * (_MAX_DEPTH - trunk_depth)
+  bot_w, bot_b = ops.bottleneck or (None, None)
+  rh_w, rh_b = ops.rgb_hidden
+  head = lambda t: _pad_cols(t, _HEAD_PAD).contiguous()
+  al_w, rl_w = head(ops.alpha_w), head(ops.rgb_w)
+  weights = (w + pad + wx + ops.trunk_b + pad
+             + [_transposed(t) for t in w] + pad
+             + [_transposed(t) for t in wx]
+             + [bot_w, bot_b, _transposed(bot_w),
+                al_w, head(ops.alpha_b), _transposed(al_w),
+                rh_w, rh_b, _transposed(rh_w),
+                rl_w, head(ops.rgb_b), _transposed(rl_w)])
+  _check_operands([t for t in weights if t is not None], device, name)
+
+  rows_alloc = min(-(-n // 64) * 64, chunk)
+  has_bt = ops.bottleneck is not None
+  depth = trunk_depth
+  shapes = ([(rows_alloc, _PE_PAD)] + [(rows_alloc, width)] * depth
+            + [(rows_alloc, width)] * has_bt + [(rows_alloc, rgb_width)]
+            + [(rows_alloc, width)] * depth + [(rows_alloc, width)] * has_bt
+            + [(rows_alloc, rgb_width), (rows_alloc, _HEAD_PAD),
+               (rows_alloc, _HEAD_PAD)])
+  views = iter(_workspace(device, shapes))
+  ws_x = next(views)
+  ws_h = [next(views) for _ in range(depth)]
+  ws_bt = next(views) if has_bt else None
+  ws_y = next(views)
+  ws_gp = [next(views) for _ in range(depth)]
+  ws_gbt = next(views) if has_bt else None
+  ws_gy, ws_ga, ws_gr = next(views), next(views), next(views)
+
+  grads = _WeightGrads()
+  for i in range(depth):
+    grads.add(f'trunk_{i}/w', ws_x if i == 0 else ws_h[i - 1], ws_gp[i],
+              f'trunk_{i}/b')
+    if i in ops.trunk_wx:
+      grads.add(f'trunk_{i}/wx', ws_x, ws_gp[i])
+  if has_bt:
+    grads.add('bottleneck/w', ws_h[-1], ws_gbt, 'bottleneck/b')
+  grads.add('rgb_hidden/w', ws_bt if ops.rgb_from_bt else ws_h[-1], ws_gy,
+            'rgb_hidden/b')
+  grads.add('alpha_logit/w', ws_bt if ops.alpha_from_bt else ws_h[-1], ws_ga,
+            'alpha_logit/b')
+  grads.add('rgb_logit/w', ws_y, ws_gr, 'rgb_logit/b')
+  partial = torch.empty(grads.splits(device) * grads.size,
+                        dtype=torch.float32, device=device)
+  flat = torch.empty(grads.size, dtype=torch.float32, device=device)
+
+  dx = torch.empty((n, c_in), dtype=torch.float32, device=device)
+  drb = (torch.empty((n, rgb_width), dtype=torch.float32, device=device)
+         if rgb_row_bias is not None else None)
+  workspace = ([ws_x] + ws_h + [None] * (_MAX_DEPTH - depth) + [ws_bt, ws_y]
+               + ws_gp + [None] * (_MAX_DEPTH - depth)
+               + [ws_gbt, ws_gy, ws_ga, ws_gr])
+  ptrs = _pointer_array([x, rgb_row_bias, g_alpha, g_rgb, dx, drb] + weights
+                        + workspace)
+  flags = ((_HAS_BOTTLENECK if has_bt else 0)
+           | (_ALPHA_FROM_BT if ops.alpha_from_bt else 0)
+           | (_RGB_FROM_BT if ops.rgb_from_bt else 0))
+  skip_mask = sum(1 << i for i in ops.trunk_wx)
+  lib = _build.load()
+  stream = torch.cuda.current_stream(device).cuda_stream
+  for row0 in range(0, n, rows_alloc):
+    rows = min(rows_alloc, n - row0)
+    rc = lib.nerf_mlp_backward_rows(
+        ctypes.addressof(ptrs), row0, rows, c_in, depth, skip_mask, flags,
+        width, rgb_width, device.index or 0, stream)
+    _check_launch(lib, rc, name)
+    grads.run(lib, lambda j: rows, lambda j: rows, partial, flat, row0 > 0,
+              device, stream)
+  nerf_mlp_backward.launches += 1
+
+  dws = grads.views(flat)
+  dws['trunk_0/w'] = dws['trunk_0/w'][:c_in]
+  for i in ops.trunk_wx:
+    dws[f'trunk_{i}/wx'] = dws[f'trunk_{i}/wx'][:c_in]
+  for key in ('alpha_logit', 'rgb_logit'):
+    dws[f'{key}/w'] = dws[f'{key}/w'][:, :_OUT_COLS]
+    dws[f'{key}/b'] = dws[f'{key}/b'][:_OUT_COLS]
+  return dx, drb, dws
+
+
+def nerf_mlp_backward(x: torch.Tensor,
+                      rgb_row_bias: Optional[torch.Tensor],
+                      params: dict,
+                      g_alpha: torch.Tensor,
+                      g_rgb: torch.Tensor,
+                      *,
+                      trunk_depth: int,
+                      skips: Tuple[int, ...]):
+  """VJP of `nerf_mlp_forward` (rgb branch depth 1, alpha branch depth 0).
+
+  Args:
+    x / rgb_row_bias / params / trunk_depth / skips: as nerf_mlp_forward.
+    g_alpha, g_rgb: (N, 8) cotangents of its two outputs.
+
+  Returns:
+    (dx (N, C_pe) f32, drb (N, rgb_width) f32 or None, dparams): dparams
+    has the param tree's names and shapes; the condition rows of the rgb
+    hidden and alpha kernels hold zeros (their gradient flows through the
+    caller's row-bias product).
+  """
+  ops = pack_nerf_mlp(params, x.shape[-1], trunk_depth, skips)
+  skips = tuple(skips)
+  if x.device.type == 'cpu':
+    dx, drb, dws = _nerf_plain_bwd(x, rgb_row_bias, ops, trunk_depth,
+                                   g_alpha.float(), g_rgb.float())
+  elif x.device.type == 'cuda':
+    dx, drb, dws = _launch_nerf_bwd(x, rgb_row_bias, ops, trunk_depth,
+                                    g_alpha, g_rgb)
+  else:
+    raise ValueError(f'nerf_mlp_backward: no kernel for device {x.device}')
+  return dx, drb, _nerf_grads_to_tree(dws, params, ops, trunk_depth, skips)
+
+
+nerf_mlp_backward.launches = 0
+
+
+# ------------------------------------------------------- autograd wiring
+
+def flatten_tree(tree: dict, prefix=()):
+  """[(path, tensor)] of a nested dict, in its iteration order."""
+  out = []
+  for key, value in tree.items():
+    if isinstance(value, dict):
+      out += flatten_tree(value, prefix + (key,))
+    else:
+      out.append((prefix + (key,), value))
+  return out
+
+
+def unflatten_tree(paths, leaves) -> dict:
+  tree = {}
+  for path, leaf in zip(paths, leaves):
+    node = tree
+    for key in path[:-1]:
+      node = node.setdefault(key, {})
+    node[path[-1]] = leaf
+  return tree
+
+
+def tree_leaf(tree: dict, path):
+  for key in path:
+    tree = tree[key]
+  return tree
+
+
+class _NerfMlpTrain(torch.autograd.Function):
+  """nerf_mlp_forward with nerf_mlp_backward as its VJP.
+
+  Params enter as a flat list of leaves so that autograd sees them; the
+  first argument carries their paths and the static architecture.
+  """
+
+  @staticmethod
+  def forward(ctx, spec, x, rgb_row_bias, *leaves):
+    paths, trunk_depth, skips = spec
+    params = unflatten_tree(paths, leaves)
+    alpha, rgb = nerf_mlp_forward(x, rgb_row_bias, params,
+                                  trunk_depth=trunk_depth, skips=skips)
+    ctx.spec = spec
+    ctx.save_for_backward(x, rgb_row_bias, *leaves)
+    return alpha, rgb
+
+  @staticmethod
+  def backward(ctx, g_alpha, g_rgb):
+    paths, trunk_depth, skips = ctx.spec
+    x, rgb_row_bias, *leaves = ctx.saved_tensors
+    params = unflatten_tree(paths, leaves)
+    dx, drb, dparams = nerf_mlp_backward(x, rgb_row_bias, params, g_alpha,
+                                         g_rgb, trunk_depth=trunk_depth,
+                                         skips=skips)
+    grads = [tree_leaf(dparams, p).to(leaf.dtype)
+             for p, leaf in zip(paths, leaves)]
+    return (None, dx.to(x.dtype),
+            None if drb is None else drb.to(rgb_row_bias.dtype), *grads)
+
+
+def nerf_mlp_train(x: torch.Tensor,
+                   rgb_row_bias: Optional[torch.Tensor],
+                   params: dict,
+                   trunk_depth: int,
+                   skips: Tuple[int, ...]):
+  """Differentiable fused NerfMLP forward (the training path).
+
+  The counterpart of nerfies_tpu.ops.fused_mlp.nerf_mlp_train: the same
+  contract as `nerf_mlp_forward`, with `nerf_mlp_backward` as its VJP,
+  which recomputes the activations instead of saving them (only x, the row
+  bias and the params are kept between the passes). Returns (alpha (N, 8),
+  rgb (N, 8)) f32.
+  """
+  flat = flatten_tree(params)
+  spec = (tuple(p for p, _ in flat), trunk_depth, tuple(skips))
+  return _NerfMlpTrain.apply(spec, x, rgb_row_bias, *[t for _, t in flat])
+
+
 def launch_counts() -> Dict[str, int]:
-  """Kernel launches counted by each wrapper since its last reset."""
+  """Kernel launches counted by each wrapper since its last reset.
+
+  A call of a backward wrapper counts once: its row pass and its
+  weight-gradient pass run per chunk of rows, as parts of one kernel.
+  """
+  from nerfies_tpu_torch.ops import fused_warp
   return {'nerf_mlp_forward': nerf_mlp_forward.launches,
-          'warp_trunk_forward': warp_trunk_forward.launches}
+          'warp_trunk_forward': warp_trunk_forward.launches,
+          'nerf_mlp_backward': nerf_mlp_backward.launches,
+          'warp_mlp_forward': fused_warp.warp_mlp_forward.launches,
+          'warp_mlp_backward': fused_warp.warp_mlp_backward.launches}
 
 
 def reset_launch_counts() -> None:
+  from nerfies_tpu_torch.ops import fused_warp
   nerf_mlp_forward.launches = 0
   warp_trunk_forward.launches = 0
+  nerf_mlp_backward.launches = 0
+  fused_warp.warp_mlp_forward.launches = 0
+  fused_warp.warp_mlp_backward.launches = 0

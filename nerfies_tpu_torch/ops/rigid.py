@@ -1,8 +1,11 @@
-"""Rigid-body motion from raw SE(3) twists (forward only).
+"""Rigid-body motion from raw SE(3) twists.
 
-Port of `se3_apply_raw` (nerfies_tpu/ops/rigid.py:134). Serving needs no
-gradient, but each branch keeps its clamp and the Taylor switch so the
-values match the reference at and around theta = 0.
+Port of `se3_apply_raw` (nerfies_tpu/ops/rigid.py:134). The elastic loss
+differentiates through this function's linearization, so it must have
+finite derivatives of every order at and around theta = 0: the exact
+branch evaluates on an input clamped into the region where it is
+selected, and a Taylor series takes over below theta = 0.1, as in the
+reference. Plain autograd differentiates it twice.
 """
 
 import torch

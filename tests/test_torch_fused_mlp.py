@@ -15,6 +15,7 @@ from nerfies_tpu.models import modules as jax_modules
 from nerfies_tpu.ops import fused_mlp as jax_fused_mlp
 from nerfies_tpu_torch import interop
 from nerfies_tpu_torch.ops import fused_mlp
+from tests.torch_parity import grad_check
 
 # bf16 operands and storage between layers: the tolerance of
 # tests/test_fused_mlp.py for the same outputs.
@@ -124,8 +125,9 @@ def test_cpu_tensors_take_the_plain_version():
   wparams = interop.params_from_jax(_jax_warp_params(), device='cpu')
   fused_mlp.warp_trunk_forward(torch.randn(10, 21), [], wparams,
                                trunk_depth=4, skips=(2,))
-  assert fused_mlp.launch_counts() == {'nerf_mlp_forward': 0,
-                                       'warp_trunk_forward': 0}
+  counts = fused_mlp.launch_counts()
+  assert counts['nerf_mlp_forward'] == counts['warp_trunk_forward'] == 0
+  assert not any(counts.values()), counts
 
 
 def test_no_kernel_for_other_devices():
@@ -133,3 +135,69 @@ def test_no_kernel_for_other_devices():
   x = torch.empty(10, 27, device='meta')
   with pytest.raises(ValueError, match='no kernel'):
     fused_mlp.nerf_mlp_forward(x, None, params, trunk_depth=4, skips=(2,))
+
+
+# ---------------------------------------------------- nerf_mlp_train's VJP
+
+@pytest.mark.parametrize('alpha_dims,rgb_dims', _COND_COMBOS)
+def test_nerf_mlp_train_matches_pallas_vjp(alpha_dims, rgb_dims):
+  """Forward at 0.05; dx, drb and every dW leaf by cosine and norm ratio
+  against the Pallas kernels' custom VJP (interpret mode)."""
+  n, c, depth, skips = 67, 27, 4, (2,)
+  params = _jax_nerf_params(alpha_dims, rgb_dims, depth=depth, skips=skips,
+                            c=c)
+  rng = np.random.RandomState(1)
+  x = np.array(jnp.asarray(rng.normal(size=(n, c)), jnp.bfloat16).astype(
+      jnp.float32))
+  rb = (np.array(jnp.asarray(rng.normal(size=(n, 32)), jnp.bfloat16).astype(
+      jnp.float32)) if rgb_dims else None)
+  g_alpha = rng.normal(size=(n, 8)).astype(np.float32)
+  g_rgb = rng.normal(size=(n, 8)).astype(np.float32)
+
+  def jax_loss(x, rb, params):
+    alpha, rgb = jax_fused_mlp.nerf_mlp_train(x, rb, params, depth, skips,
+                                              True)
+    return jnp.sum(alpha * g_alpha) + jnp.sum(rgb * g_rgb), (alpha, rgb)
+
+  jrb = None if rb is None else jnp.asarray(rb)
+  (_, (want_alpha, want_rgb)), want = jax.value_and_grad(
+      jax_loss, argnums=(0, 1, 2), has_aux=True)(jnp.asarray(x), jrb, params)
+
+  tparams = interop.params_from_jax(params, device='cpu')
+  leaves = [t.requires_grad_(True) for _, t in fused_mlp.flatten_tree(tparams)]
+  tx = torch.from_numpy(x).requires_grad_(True)
+  trb = None if rb is None else torch.from_numpy(rb).requires_grad_(True)
+  alpha, rgb = fused_mlp.nerf_mlp_train(tx, trb, tparams, depth, skips)
+  np.testing.assert_allclose(alpha.detach().numpy(), np.asarray(want_alpha),
+                             atol=ATOL, rtol=RTOL)
+  np.testing.assert_allclose(rgb.detach().numpy(), np.asarray(want_rgb),
+                             atol=ATOL, rtol=RTOL)
+  loss = ((alpha * torch.from_numpy(g_alpha)).sum()
+          + (rgb * torch.from_numpy(g_rgb)).sum())
+  inputs = [tx] + ([trb] if trb is not None else []) + leaves
+  grads = torch.autograd.grad(loss, inputs)
+  grad_check({'x': grads[0]}, {'x': want[0]}, 'dx')
+  if trb is not None:
+    grad_check({'rb': grads[1]}, {'rb': want[1]}, 'drb')
+  got = fused_mlp.unflatten_tree(
+      [p for p, _ in fused_mlp.flatten_tree(tparams)], grads[-len(leaves):])
+  grad_check(got, want[2], 'dW')
+
+
+def test_backward_wrapper_equals_its_plain_version_on_cpu():
+  params = interop.params_from_jax(_jax_nerf_params(5, 7), device='cpu')
+  g = torch.Generator().manual_seed(3)
+  x = torch.randn(10, 27, generator=g)
+  rb = torch.randn(10, 32, generator=g)
+  ga, gr = torch.randn(10, 8, generator=g), torch.randn(10, 8, generator=g)
+  before = fused_mlp.nerf_mlp_backward.launches
+  got = fused_mlp.nerf_mlp_backward(x, rb, params, ga, gr, trunk_depth=4,
+                                    skips=(2,))
+  want = fused_mlp.nerf_mlp_backward_reference(x, rb, params, ga, gr,
+                                               trunk_depth=4, skips=(2,))
+  assert fused_mlp.nerf_mlp_backward.launches == before
+  assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+  for (pa, a), (pb, b) in zip(fused_mlp.flatten_tree(got[2]),
+                              fused_mlp.flatten_tree(want[2])):
+    assert pa == pb and torch.equal(a, b)
+    assert a.shape == fused_mlp.tree_leaf(params, pa).shape

@@ -1,5 +1,8 @@
 """The CUDA kernels against their plain versions, on a card.
 
+At the bench model's widths: the NeRF MLP 8 x 256 (skip 4, rgb branch
+128), the warp trunk 6 x 128 (skip 4) with 8 embedding features.
+
 Marked `cuda`: they skip without a card, since a CUDA kernel has no CPU
 mode. This file imports no JAX, so it also runs on a machine without it:
 
@@ -12,6 +15,7 @@ import torch
 
 from nerfies_tpu_torch.models import modules
 from nerfies_tpu_torch.ops import fused_mlp
+from nerfies_tpu_torch.ops import fused_warp
 
 # bf16 operands and storage between layers: the tolerance of
 # tests/test_fused_mlp.py for the same outputs.
@@ -71,3 +75,175 @@ def test_warp_kernel_matches_plain_on_card(cuda_device, n):
 def _tree_to(tree, device):
   return {k: (_tree_to(v, device) if isinstance(v, dict)
               else v.to(device)) for k, v in tree.items()}
+
+
+# ------------------------------------------------------ training kernels
+#
+# Backward outputs. A pre-activation within rounding of zero can fall on
+# either side of the ReLU in the kernel and in the plain version (their
+# f32 sums run in different orders); the cotangent element then passes
+# in one and stops in the other. Such mask flips touch few, isolated rows,
+# while a wrong kernel disagrees on most of them. So per-row cotangents
+# must agree at atol = rtol = 0.05 on all rows but at most
+# MAX_FLIPPED_ROWS_FRAC of them (at least one row), and each dW leaf, a
+# sum over rows that one flip shifts by one row's product, must keep
+# cosine > DW_COSINE and a norm ratio within 1 +- DW_NORM with the plain
+# one.
+MAX_FLIPPED_ROWS_FRAC = 0.01
+DW_COSINE = 0.99
+DW_NORM = 0.05
+
+
+def _assert_rows_close(got, want):
+  assert got.shape == want.shape
+  bad = (~torch.isclose(got, want, atol=ATOL, rtol=RTOL)).any(dim=1)
+  allowed = max(1, int(MAX_FLIPPED_ROWS_FRAC * got.shape[0]))
+  assert int(bad.sum()) <= allowed, f'{int(bad.sum())} of {got.shape[0]} rows'
+
+
+def _bench_warp(generator, device):
+  trunk = modules.mlp([39, 8], 6, 128, (4,), generator=generator)
+  # A Glorot head: at its 1e-4 init scale the head would hide trunk errors.
+  head = modules.mlp([128], 0, 128, output_channels=6, generator=generator)
+  return _tree_to({'trunk': trunk, 'head': {'logit': head['logit']}},
+                  device)
+
+
+def _assert_dw_close(got, want):
+  got = dict(fused_mlp.flatten_tree(got))
+  want = dict(fused_mlp.flatten_tree(want))
+  assert got.keys() == want.keys()
+  for name in want:
+    assert got[name].shape == want[name].shape, name
+    a, b = got[name].double().ravel(), want[name].double().ravel()
+    na, nb = float(a.norm()), float(b.norm())
+    if nb == 0.0:
+      assert na == 0.0, name
+      continue
+    cos = float(a @ b) / (na * nb)
+    assert cos > DW_COSINE, f'{name}: cosine {cos}'
+    assert abs(na / nb - 1.0) < DW_NORM, f'{name}: norms {na} / {nb}'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 64, 1000, 4099])
+@pytest.mark.parametrize('with_bias', [False, True])
+def test_nerf_backward_kernel_matches_plain_on_card(cuda_device, n,
+                                                    with_bias):
+  g = torch.Generator().manual_seed(n)
+  params = _tree_to(_bench_width_nerf(g), cuda_device)
+  x = torch.randn(n, 51, generator=g).to(cuda_device)
+  rb = torch.randn(n, 128, generator=g).to(cuda_device) if with_bias else None
+  ga = torch.randn(n, 8, generator=g).to(cuda_device)
+  gr = torch.randn(n, 8, generator=g).to(cuda_device)
+  before = fused_mlp.nerf_mlp_backward.launches
+  got = fused_mlp.nerf_mlp_backward(x, rb, params, ga, gr, trunk_depth=8,
+                                    skips=(4,))
+  torch.cuda.synchronize()
+  assert fused_mlp.nerf_mlp_backward.launches == before + 1
+  want = fused_mlp.nerf_mlp_backward_reference(x, rb, params, ga, gr,
+                                               trunk_depth=8, skips=(4,))
+  _assert_rows_close(got[0], want[0])
+  assert (got[1] is None) == (not with_bias)
+  if with_bias:
+    _assert_rows_close(got[1], want[1])
+  _assert_dw_close(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_nerf_backward_chunks_are_deterministic_on_card(cuda_device):
+  g = torch.Generator().manual_seed(7)
+  params = _tree_to(_bench_width_nerf(g), cuda_device)
+  n = 5000
+  x = torch.randn(n, 51, generator=g).to(cuda_device)
+  rb = torch.randn(n, 128, generator=g).to(cuda_device)
+  ga = torch.randn(n, 8, generator=g).to(cuda_device)
+  gr = torch.randn(n, 8, generator=g).to(cuda_device)
+  ops = fused_mlp.pack_nerf_mlp(params, 51, 8, (4,))
+  runs = [fused_mlp._launch_nerf_bwd(x, rb, ops, 8, ga, gr, chunk=1024)
+          for _ in range(2)]
+  torch.cuda.synchronize()
+  for name in runs[0][2]:
+    assert torch.equal(runs[0][2][name], runs[1][2][name]), name
+  whole = fused_mlp._launch_nerf_bwd(x, rb, ops, 8, ga, gr)
+  torch.testing.assert_close(runs[0][0], whole[0], atol=0, rtol=0)
+  for name in whole[2]:
+    torch.testing.assert_close(runs[0][2][name], whole[2][name], atol=1e-3,
+                               rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 64, 4099])
+@pytest.mark.parametrize('nt', [0, 3])
+def test_warp_forward_kernel_matches_plain_on_card(cuda_device, n, nt):
+  g = torch.Generator().manual_seed(n + nt)
+  params = _bench_warp(g, cuda_device)
+  x = torch.randn(n, 39, generator=g).to(cuda_device)
+  e = torch.rand(n, 8, generator=g).to(cuda_device)
+  ts = [torch.randn(n, 39, generator=g).to(cuda_device) for _ in range(nt)]
+  before = fused_warp.warp_mlp_forward.launches
+  out, jouts = fused_warp.warp_mlp_forward(x, e, ts, params, trunk_depth=6,
+                                           skips=(4,))
+  torch.cuda.synchronize()
+  assert fused_warp.warp_mlp_forward.launches == before + 1
+  want_out, want_jouts = fused_warp.warp_mlp_reference(
+      x, e, ts, params, trunk_depth=6, skips=(4,))
+  torch.testing.assert_close(out, want_out, atol=ATOL, rtol=RTOL)
+  assert len(jouts) == nt
+  for got_j, want_j in zip(jouts, want_jouts):
+    # The tangent chains take the primal's ReLU mask: flips show here too.
+    _assert_rows_close(got_j, want_j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 64, 4099])
+@pytest.mark.parametrize('nt', [0, 3])
+@pytest.mark.parametrize('need_dx', [False, True])
+def test_warp_backward_kernel_matches_plain_on_card(cuda_device, n, nt,
+                                                    need_dx):
+  g = torch.Generator().manual_seed(n + nt)
+  params = _bench_warp(g, cuda_device)
+  x = torch.randn(n, 39, generator=g).to(cuda_device)
+  e = torch.rand(n, 8, generator=g).to(cuda_device)
+  ts = [torch.randn(n, 39, generator=g).to(cuda_device) for _ in range(nt)]
+  go = torch.randn(n, 8, generator=g).to(cuda_device)
+  gjs = [torch.randn(n, 8, generator=g).to(cuda_device) for _ in range(nt)]
+  before = fused_warp.warp_mlp_backward.launches
+  got = fused_warp.warp_mlp_backward(x, e, ts, params, go, gjs,
+                                     trunk_depth=6, skips=(4,),
+                                     need_dx=need_dx)
+  torch.cuda.synchronize()
+  assert fused_warp.warp_mlp_backward.launches == before + 1
+  want = fused_warp.warp_mlp_backward_reference(
+      x, e, ts, params, go, gjs, trunk_depth=6, skips=(4,), need_dx=need_dx)
+  _assert_rows_close(got[0], want[0])
+  if need_dx:
+    _assert_rows_close(got[1], want[1])
+    for got_t, want_t in zip(got[2], want[2]):
+      _assert_rows_close(got_t, want_t)
+  else:
+    assert got[1] is None and got[2] is None
+  _assert_dw_close(got[3], want[3])
+
+
+@pytest.mark.cuda
+def test_warp_backward_chunks_are_deterministic_on_card(cuda_device):
+  g = torch.Generator().manual_seed(11)
+  params = _bench_warp(g, cuda_device)
+  n = 3000
+  x = torch.randn(n, 39, generator=g).to(cuda_device)
+  e = torch.rand(n, 8, generator=g).to(cuda_device)
+  ts = [torch.randn(n, 39, generator=g).to(cuda_device) for _ in range(3)]
+  go = torch.randn(n, 8, generator=g).to(cuda_device)
+  gjs = [torch.randn(n, 8, generator=g).to(cuda_device) for _ in range(3)]
+  ops = fused_warp.pack(params, 39, 8, 6, (4,))
+  runs = [fused_warp._launch_bwd(x, e, ts, go, gjs, ops, 6, (4,), True,
+                                 chunk=1024) for _ in range(2)]
+  torch.cuda.synchronize()
+  for name in runs[0][3]:
+    assert torch.equal(runs[0][3][name], runs[1][3][name]), name
+  whole = fused_warp._launch_bwd(x, e, ts, go, gjs, ops, 6, (4,), True)
+  torch.testing.assert_close(runs[0][0], whole[0], atol=0, rtol=0)
+  for name in whole[3]:
+    torch.testing.assert_close(runs[0][3][name], whole[3][name], atol=1e-3,
+                               rtol=1e-3)

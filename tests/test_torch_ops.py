@@ -1,16 +1,21 @@
 """The port's tensor ops against the JAX package's, in float32 on the CPU."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from nerfies_tpu.ops import encoding as jax_encoding
+from nerfies_tpu.ops import mathutils as jax_mathutils
 from nerfies_tpu.ops import rendering as jax_rendering
 from nerfies_tpu.ops import rigid as jax_rigid
+from nerfies_tpu.ops import svd3 as jax_svd3
 from nerfies_tpu_torch.ops import encoding
+from nerfies_tpu_torch.ops import mathutils
 from nerfies_tpu_torch.ops import rendering
 from nerfies_tpu_torch.ops import rigid
+from nerfies_tpu_torch.ops import svd3
 
 # float32 elementwise math in both frameworks: a few ulps apart.
 ATOL, RTOL = 1e-5, 1e-5
@@ -123,3 +128,184 @@ def test_sample_pdf_matches():
   # interpolation then matches to a few ulps of the depth range.
   _close(got_z, want_z, atol=1e-5, rtol=1e-5)
   _close(got_p, want_p, atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------------ train-time ops
+
+def _t(a):
+  return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def test_posenc_tangents_match_jax_linearize():
+  x = np.random.RandomState(6).uniform(-1, 1, (4, 5, 3)).astype(np.float32)
+  fn = lambda p: jax_encoding.posenc(p, 6, use_identity=True, alpha=2.5)
+  want_pe, jvp = jax.linearize(fn, jnp.asarray(x))
+  got_pe, tangents = encoding.posenc_with_tangents(_t(x), 6, alpha=2.5)
+  _close(got_pe, want_pe)
+  assert len(tangents) == 3
+  for j, t in enumerate(tangents):
+    e = jnp.broadcast_to(jnp.eye(3, dtype=jnp.float32)[j], x.shape)
+    # The slope is cos(angle) * freq: up to 32 at 6 bands, so float32
+    # ulps of the angle scale with it.
+    _close(t, jvp(e), atol=1e-4, rtol=1e-5)
+
+
+def test_se3_apply_raw_double_backward_matches_jax():
+  """The elastic loss differentiates through the linearized SE(3) action:
+  gradients of a Jacobian loss, finite at w = 0 and equal to JAX's."""
+  rng = np.random.RandomState(7)
+  w = rng.normal(size=(16, 3)).astype(np.float32) * 0.3
+  w[:4] = 0.0                      # the identity rotation
+  w[4:8] *= 1e-3                   # inside the Taylor branch
+  v = rng.normal(size=(16, 3)).astype(np.float32)
+  p = rng.normal(size=(16, 3)).astype(np.float32)
+  jw = rng.normal(size=(3, 16, 3)).astype(np.float32)
+  jv = rng.normal(size=(3, 16, 3)).astype(np.float32)
+  eye = np.eye(3, dtype=np.float32)
+
+  def jax_loss(w, v, jw, jv):
+    _, lin = jax.linearize(jax_rigid.se3_apply_raw, w, v, jnp.asarray(p))
+    cols = [lin(jw[j], jv[j], jnp.broadcast_to(eye[j], p.shape))
+            for j in range(3)]
+    return sum(jnp.sum((c - eye[j]) ** 2) for j, c in enumerate(cols))
+
+  want = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+      jnp.asarray(w), jnp.asarray(v), jnp.asarray(jw), jnp.asarray(jv))
+  tw, tv, tjw, tjv = (_t(a).requires_grad_(True) for a in (w, v, jw, jv))
+  loss = 0.0
+  for j in range(3):
+    _, col = torch.func.jvp(rigid.se3_apply_raw, (tw, tv, _t(p)),
+                            (tjw[j], tjv[j], _t(eye[j]).expand(16, 3)))
+    loss = loss + ((col - _t(eye[j])) ** 2).sum()
+  got = torch.autograd.grad(loss, (tw, tv, tjw, tjv))
+  for g, w_ in zip(got, want):
+    assert torch.isfinite(g).all()
+    _close(g, w_)
+
+
+def test_safe_norm_gradient_is_zero_at_the_origin():
+  x = np.array([[0.0, 0.0, 0.0], [3.0, 4.0, 0.0]], np.float32)
+  want = jax.grad(lambda a: jax_mathutils.safe_norm(a).sum())(jnp.asarray(x))
+  tx = _t(x).requires_grad_(True)
+  got, = torch.autograd.grad(mathutils.safe_norm(tx).sum(), tx)
+  _close(mathutils.safe_norm(_t(x)), jax_mathutils.safe_norm(jnp.asarray(x)))
+  _close(got, want)
+  assert float(got[0].abs().sum()) == 0.0
+
+
+def _jacobians(seed=8, n=40):
+  """(3, 3, n) Jacobians: near-identity, random, and reflecting."""
+  rng = np.random.RandomState(seed)
+  j = np.eye(3, dtype=np.float32)[..., None] + 0.3 * rng.normal(
+      size=(3, 3, n)).astype(np.float32)
+  j[:, :, :5] = rng.normal(size=(3, 3, 5))
+  j[0, :, 5:10] *= -1.0  # det < 0
+  j[:, :, 10] = np.eye(3)  # exactly the identity
+  return j.astype(np.float32)
+
+
+def test_jacobian_operators_match():
+  j = _jacobians()
+  _close(mathutils.jacobian_to_curl(_t(j)),
+         jax_mathutils.jacobian_to_curl(jnp.asarray(j)))
+  _close(mathutils.jacobian_to_div(_t(j)),
+         jax_mathutils.jacobian_to_div(jnp.asarray(j)))
+  mse = np.array([0.5, 0.01, 1e-4], np.float32)
+  _close(mathutils.compute_psnr(_t(mse)),
+         jax_mathutils.compute_psnr(jnp.asarray(mse)))
+  sq = np.array([0.0, 1e-9, 2.0], np.float32)
+  _close(mathutils.safe_sqrt(_t(sq)), jax_mathutils.safe_sqrt(jnp.asarray(sq)))
+
+
+@pytest.mark.parametrize('alpha', [-np.inf, -2.0, -0.5, 0.0, 1.0, 2.0, 4.0,
+                                   np.inf])
+def test_general_loss_matches(alpha):
+  sq = np.random.RandomState(9).exponential(0.01, size=64).astype(np.float32)
+  sq[0] = 0.0
+
+  def jax_fn(s):
+    return jax_mathutils.general_loss_with_squared_residual(
+        s, alpha=alpha, scale=0.1).sum()
+
+  want_value = jax_mathutils.general_loss_with_squared_residual(
+      jnp.asarray(sq), alpha=alpha, scale=0.1)
+  want_grad = jax.grad(jax_fn)(jnp.asarray(sq))
+  ts = _t(sq).requires_grad_(True)
+  got = mathutils.general_loss_with_squared_residual(ts, alpha=alpha,
+                                                     scale=0.1)
+  grad, = torch.autograd.grad(got.sum(), ts)
+  _close(got.detach(), want_value)
+  _close(grad, want_grad)
+
+
+@pytest.mark.parametrize('name', ['svals3', 'det3', 'inv3',
+                                  'nearest_rotation'])
+def test_svd3_matches(name):
+  j = _jacobians()
+  want = getattr(jax_svd3, name)(jnp.asarray(j))
+  got = getattr(svd3, name)(_t(j))
+  assert got.shape == want.shape
+  _close(got, want)
+
+
+def test_svd3_layout_round_trip():
+  j = _jacobians()
+  trailing = svd3.to_trailing(_t(j))
+  assert trailing.shape == (40, 3, 3)
+  assert torch.equal(svd3.from_trailing(trailing), _t(j))
+
+
+def test_stratified_sampling():
+  o = torch.zeros(32, 3)
+  d = torch.nn.functional.normalize(torch.randn(32, 3), dim=-1)
+  runs = [rendering.sample_along_rays(
+      o, d, 64, 0.5, 3.0, False, torch.Generator().manual_seed(5))
+          for _ in range(2)]
+  z, points = runs[0]
+  assert z.shape == (32, 64) and points.shape == (32, 64, 3)
+  assert torch.equal(z, runs[1][0])  # same generator seed, same samples
+  assert (z[:, 1:] >= z[:, :-1]).all()
+  assert float(z.min()) >= 0.5 and float(z.max()) <= 3.0
+  det, _ = rendering.sample_along_rays(o, d, 64, 0.5, 3.0, False)
+  assert not torch.equal(z, det)
+  # Each sample stays inside its stratum (between neighbouring midpoints).
+  mids = 0.5 * (det[0, 1:] + det[0, :-1])
+  assert (z[:, 1:] >= mids).all() and (z[:, :-1] <= mids).all()
+  other, _ = rendering.sample_along_rays(o, d, 64, 0.5, 3.0, False,
+                                         torch.Generator().manual_seed(6))
+  assert not torch.equal(z, other)
+
+
+def test_stratified_pdf_samples():
+  rng = np.random.RandomState(10)
+  z = np.sort(rng.uniform(0.5, 3.0, size=(8, 17)), axis=-1).astype(
+      np.float32)
+  weights = _t(rng.exponential(size=(8, 15))).requires_grad_(True)
+  mids = _t(0.5 * (z[:, 1:] + z[:, :-1]))
+  got = [rendering.piecewise_constant_pdf(mids, weights, 20,
+                                          torch.Generator().manual_seed(1))
+         for _ in range(2)]
+  assert torch.equal(got[0], got[1]) and got[0].shape == (8, 20)
+  assert not got[0].requires_grad  # the samples' gradient is stopped
+  assert (got[0] >= mids[:, :1]).all() and (got[0] <= mids[:, -1:]).all()
+  zs, points = rendering.sample_pdf(mids, weights, torch.zeros(8, 3),
+                                    torch.ones(8, 3), _t(z), 20,
+                                    torch.Generator().manual_seed(1))
+  assert zs.shape == (8, 37) and (zs[:, 1:] >= zs[:, :-1]).all()
+
+
+def test_noise_regularize_and_depth_index():
+  sigma = torch.zeros(4, 8)
+  gen = torch.Generator().manual_seed(0)
+  assert torch.equal(rendering.noise_regularize(sigma, 0.5, False, gen),
+                     sigma)
+  assert torch.equal(rendering.noise_regularize(sigma, None, True, gen),
+                     sigma)
+  noisy = rendering.noise_regularize(sigma, 0.5, True, gen)
+  assert not torch.equal(noisy, sigma) and torch.isfinite(noisy).all()
+  rng = np.random.RandomState(11)
+  weights = rng.uniform(size=(6, 12)).astype(np.float32) / 6.0
+  weights[0] = 0.0
+  want = jax_rendering.compute_depth_index(jnp.asarray(weights))
+  got = rendering.compute_depth_index(_t(weights))
+  np.testing.assert_array_equal(got.numpy(), np.asarray(want))
