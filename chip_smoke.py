@@ -18,7 +18,12 @@ non-zero exit at the first phase that fails:
            0.05 on all but MAX_FLIPPED_ROWS_FRAC of the rows (ReLU mask
            flips, see below), each dW leaf by max|kernel - plain| <=
            DW_MAX_REL * max|plain|; each backward runs twice and must give
-           bit-identical dW (the reduction is deterministic).
+           bit-identical dW (the reduction is deterministic). The NeRF
+           backward's row pass and weight-gradient pass are also timed on
+           their own.
+  widths   hold the NeRF forward and backward against their plain versions,
+           as above, at the other widths the kernels are built for
+           (OTHER_NERF_WIDTHS), OTHER_WIDTH_ROWS rows.
   serve    build the bench render model from a seed and serve 3 requests
            of 128x128 rays through evaluation.make_render_fn and
            render_image (chunk 8192, warp alpha 6.0); check the outputs and
@@ -89,6 +94,10 @@ TRAIN_BACKGROUND_POINTS = 16384
 MAX_FLIPPED_ROWS_FRAC = 0.01
 DW_MAX_REL = 0.05  # max|kernel - plain| <= DW_MAX_REL * max|plain| per dW
 TRAIN_STEPS = 3
+# (trunk width, rgb branch width) of the NeRF kernels besides the bench
+# model's (256, 128), and the rows they are checked at.
+OTHER_NERF_WIDTHS = ((128, 128), (32, 128))
+OTHER_WIDTH_ROWS = 131072 + 37
 PARITY_TRAIN_RAYS = 128
 PARITY_BACKGROUND_POINTS = 2048
 STATS_RTOL, STATS_ATOL = 0.05, 5e-4
@@ -522,11 +531,25 @@ def phase_train_kernels(model, device, generator, device_name):
       plain_ms = time_ms(plain, reps=3)
       library_ms = time_ms(library_nerf_backward(x, rb, nerf_ops, depth, ga,
                                                  gr), reps=5)
-      nbytes_ = (nbytes(x, rb, ga, gr) + operand_bytes(nerf_ops)
-                 + n * (c_pe + nerf_ops.rgb_width) * 4 + nerf_param_bytes)
-      results['nerf_mlp_backward'] = report(
+      io_bytes = (nbytes(x, rb, ga, gr) + operand_bytes(nerf_ops)
+                  + n * (c_pe + nerf_ops.rgb_width) * 4)
+      results['nerf_mlp_backward'] = entry = report(
           'nerf_mlp_backward', n, err, ms, plain_ms, library_ms,
-          2 * 3 * nerf_macs * n, nbytes_)
+          2 * 3 * nerf_macs * n, io_bytes + nerf_param_bytes)
+      # The two passes alone: the row pass writes the workspace that the
+      # weight-gradient pass reads.
+      passes, _ = fused_mlp._nerf_bwd_passes(x, rb, nerf_ops, depth, ga, gr)
+      ws_bytes = n * 2 * (64 + 2 * (depth + 1) * nerf_ops.width
+                          + 2 * nerf_ops.rgb_width + 32)
+      for part, index, flops, part_bytes in (
+          ('row_pass', 0, 2 * 2 * nerf_macs * n, io_bytes + ws_bytes),
+          ('weight_pass', 1, 2 * nerf_macs * n, ws_bytes + nerf_param_bytes)):
+        part_ms = time_ms(lambda: [p[index]() for p in passes], reps=5)
+        part_bound, part_by = bound(flops, part_bytes)
+        print(f'    {part}: {part_ms:.3f} ms, bound {part_bound:.3f} ms '
+              f'({part_by}), {flops / part_ms / 1e9:.1f} TFLOP/s')
+        entry.update({f'{part}_ms': part_ms, f'{part}_bound_ms': part_bound})
+      del passes
     else:
       print(f'  nerf_mlp_backward rows={n}: {ms:.3f} ms kernel')
       entry = results['nerf_mlp_backward']
@@ -593,6 +616,55 @@ def phase_train_kernels(model, device, generator, device_name):
       nbytes(x, e, *ts, go, *gjs) + 2 * sum(v.numel() for v in wops.values())
       + n * f_embed * 4 + warp_param_bytes)
   return results
+
+
+@torch.no_grad()
+def phase_other_widths(model, device, generator):
+  """The NeRF forward and backward at OTHER_NERF_WIDTHS vs plain."""
+  mlp = model.params['nerf_mlps_coarse']
+  depth, skips = model.nerf_trunk_depth, model.nerf_skips
+  c_pe = encoding.posenc_output_dim(3, model.num_nerf_point_freqs)
+  bench_width = mlp['trunk_hidden_0']['kernel'].shape[1]
+  rgb_cond = mlp['rgb_hidden_0']['kernel'].shape[0] - bench_width
+  alpha_cond = mlp['alpha_logit']['kernel'].shape[0] - bench_width
+  n = OTHER_WIDTH_ROWS
+
+  def randn(*shape):
+    return torch.randn(*shape, generator=generator, device=device)
+
+  worst = {}
+  for width, rgb_width in OTHER_NERF_WIDTHS:
+    params = _tree_to(modules.nerf_mlp(
+        point_dims=c_pe, alpha_condition_dims=alpha_cond,
+        rgb_condition_dims=rgb_cond, trunk_depth=depth, trunk_width=width,
+        rgb_branch_width=rgb_width, skips=skips,
+        generator=torch.Generator().manual_seed(width)), device)
+    x = encoding.posenc(randn(n, 3), model.num_nerf_point_freqs)
+    rb = randn(n, rgb_width).to(torch.bfloat16)
+    kw = dict(trunk_depth=depth, skips=skips)
+    got = fused_mlp.nerf_mlp_forward(x, rb, params, **kw)
+    torch.cuda.synchronize()
+    want = fused_mlp.nerf_mlp_reference(x, rb, params, **kw)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    ok = all(torch.allclose(g, w, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+             for g, w in zip(got, want))
+    print(f'  nerf_mlp_forward widths=({width}, {rgb_width}) rows={n}: '
+          f'max_abs_err {err:.3g}, within atol=rtol={KERNEL_ATOL}: {ok}')
+    check(ok, f'nerf_mlp_forward at ({width}, {rgb_width}) disagrees with '
+          f'its plain version: max_abs_err {err}')
+    worst['nerf_mlp_forward'] = max(err, worst.get('nerf_mlp_forward', 0.0))
+    ga, gr = randn(n, 8), randn(n, 8)
+    got = fused_mlp.nerf_mlp_backward(x, rb, params, ga, gr, **kw)
+    again = fused_mlp.nerf_mlp_backward(x, rb, params, ga, gr, **kw)
+    torch.cuda.synchronize()
+    _same_bits('nerf_mlp_backward', got[2], again[2])
+    want = fused_mlp.nerf_mlp_backward_reference(x, rb, params, ga, gr, **kw)
+    err = _check_backward(
+        f'nerf_mlp_backward widths=({width}, {rgb_width}) rows={n}', got[:2],
+        want[:2], got[2], want[2])
+    worst['nerf_mlp_backward'] = max(err, worst.get('nerf_mlp_backward', 0.0))
+    del got, again, want
+  return worst
 
 
 def _request_rays(index, rng):
@@ -859,6 +931,10 @@ def main(argv=None):
         **phase_train_kernels(
             model, device, torch.Generator(device).manual_seed(args.seed + 1),
             device_name)})
+    other = run_phase('widths', phase_other_widths, model, device,
+                      torch.Generator(device).manual_seed(args.seed + 2))
+    for name, err in other.items():
+      kernels[name]['max_abs_err'] = max(kernels[name]['max_abs_err'], err)
     serve_counts, first_request = run_phase(
         'serve', phase_serve, model, state, np.random.RandomState(args.seed))
     run_phase('parity', phase_parity, model, state, first_request)
@@ -890,7 +966,10 @@ def main(argv=None):
         'max_abs_err': k['max_abs_err'], 'ms': k['ms'],
         'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
         'bound_by': k['bound_by'], 'library_ms': k['library_ms'],
-        'rows': k['rows']})
+        'rows': k['rows'],
+        **{key: k[key] for key in ('row_pass_ms', 'row_pass_bound_ms',
+                                   'weight_pass_ms', 'weight_pass_bound_ms')
+           if key in k}})
   print(f'total: {time.perf_counter() - total:.2f} s '
         f'(build {build_seconds:.2f} s)')
   print(json.dumps({'kernels': lines}))

@@ -39,21 +39,23 @@
 
 namespace {
 
-template <int W>
+// Shared memory of a kernel whose activation buffers and weight slices
+// are L columns wide (plus padding): the widest product it runs.
+template <int L>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (BM * LDX + 2 * BM * (W + SPAD) + BK * (W + SPAD)) +
+  return sizeof(bf16) * (BM * LDX + 2 * BM * (L + SPAD) + BK * (L + SPAD)) +
          sizeof(float) * (NTHREADS / 32) * 256;
 }
 
 // The trunk: `depth` layers of width W over the encoding tile xs, with the
-// skip layers' second product from xs. Returns the buffer holding h.
-template <int W>
+// skip layers' second product from xs; h0 and h1 have row stride LDH.
+// Returns the buffer holding h.
+template <int W, int LDH = W + SPAD>
 __device__ bf16* trunk(const bf16* const* w, const bf16* const* wx,
                        const bf16* const* b, const bf16* const* row_bias,
                        int depth, int skip_mask, int row0, int rows_valid,
                        bf16* xs, bf16* h0, bf16* h1, bf16* w_s,
                        float* scratch) {
-  constexpr int LDH = W + SPAD;
   const bf16* cur = xs;
   int ldc = LDX, kc = CPAD;
   bf16* h = h0;
@@ -97,10 +99,15 @@ struct NerfArgs {
   int n, c_in, depth, skip_mask, flags;
 };
 
+// The rgb branch's RW-wide tiles share the trunk's buffers and weight
+// slice, so every buffer is sized by the wider of W and RW.
+template <int W, int RW>
+__host__ __device__ constexpr int nerf_cols() { return W > RW ? W : RW; }
+
 template <int W, int RW>
 __global__ void __launch_bounds__(NTHREADS, 2) nerf_mlp_kernel(const __grid_constant__ NerfArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LDH = W + SPAD;
+  constexpr int LDH = nerf_cols<W, RW>() + SPAD;
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* h0 = xs + BM * LDX;
   bf16* h1 = h0 + BM * LDH;
@@ -110,8 +117,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) nerf_mlp_kernel(const __grid_cons
   const int row0 = blockIdx.x * BM;
   const int rows_valid = min(BM, a.n - row0);
   load_tile<CPAD>(a.x, a.c_in, row0, rows_valid, xs, LDX, nullptr);
-  bf16* h = trunk<W>(a.w, a.wx, a.b, nullptr, a.depth, a.skip_mask, row0,
-                     rows_valid, xs, h0, h1, w_s, scratch);
+  bf16* h = trunk<W, LDH>(a.w, a.wx, a.b, nullptr, a.depth, a.skip_mask,
+                          row0, rows_valid, xs, h0, h1, w_s, scratch);
   bf16* other = (h == h0) ? h1 : h0;
 
   const bf16* bt = h;
@@ -236,9 +243,17 @@ int nerf_mlp_forward(void* const* p, int n, int c_in, int depth,
   a.depth = depth;
   a.skip_mask = skip_mask;
   a.flags = flags;
+  cudaStream_t s = (cudaStream_t)stream;
+  // The widths of ops/fused_mlp.py _NERF_WIDTHS.
   if (width == 256 && rgb_width == 128)
-    return (int)launch(nerf_mlp_kernel<256, 128>, a, smem_bytes<256>(),
-                       (cudaStream_t)stream);
+    return (int)launch(nerf_mlp_kernel<256, 128>, a,
+                       smem_bytes<nerf_cols<256, 128>()>(), s);
+  if (width == 128 && rgb_width == 128)
+    return (int)launch(nerf_mlp_kernel<128, 128>, a,
+                       smem_bytes<nerf_cols<128, 128>()>(), s);
+  if (width == 32 && rgb_width == 128)
+    return (int)launch(nerf_mlp_kernel<32, 128>, a,
+                       smem_bytes<nerf_cols<32, 128>()>(), s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,26 +12,309 @@
 // adds it into one resident f32 block, since its grid runs in order. Here
 // this row pass stores each layer's bf16 input activation and bf16
 // pre-activation cotangent to a workspace (chunk-local rows), and
-// weight_grad.cu forms the dW from it in a fixed order. A 64-row tile of
-// every trunk activation (8 x 256 bf16, 256 KB) does not fit in 227 KB of
-// shared memory; the workspace holds them instead, and the backward reads
-// each layer's activation back only for its ReLU mask.
+// weight_grad.cu forms the dW from it in a fixed order.
 //
-// Per block (64 rows, 8 warps): the forward recompute as in fused_mlp.cu,
-// writing each layer's output to the workspace; then, in shared memory, the
-// head cotangents and one running cotangent buffer pair (2 x 64 x 256
-// bf16), with each product streaming its transposed weight from L2 in
-// 32-row slices. 108 KB of shared memory, two blocks per SM.
+// Bound on an H100 SXM: 3 x 583,808 multiply-adds per row at the bench
+// widths (the recompute, the input cotangents and the dW, 2/3 of them
+// here), so the tensor rate; the workspace adds 9,920 bytes per row
+// written here and read by weight_grad.cu. What held the first version of
+// this pass to ~43 TFLOP/s was latency, not the tensor instruction: each
+// 32-row weight slice was copied synchronously between two barriers, the
+// wmma fragments came straight from shared memory, and ptxas spilled.
 //
-// Bound on an H100 SXM: 3 x 583,808 multiply-adds per row (the recompute,
-// the input cotangents and the dW), so the tensor rate; the workspace adds
-// ~10 KB per row written here and read by weight_grad.cu.
+// Design. A block of 8 warps owns RBM = 128 rows, so each weight byte
+// streamed from L2 serves 128 rows (256 FLOP per byte, above what L2 feeds
+// at the card's mma.sync rate). Warp w computes rows 64 (w % 2) .. + 64 and
+// a quarter of the columns of every product, as mma.sync.m16n8k16 bf16
+// tiles with f32 accumulators in registers (128 at width 256; no spills
+// at one block per SM). Weight slices of KS = 32 rows flow through a ring
+// of RSTAGES cp.async stages: the next slices land while the current one
+// multiplies, with one barrier per slice. Weights stay in Flax's (in, out)
+// layout: a product with W stages row slices and reads B fragments with
+// ldmatrix.trans; a product with W^T (the cotangents) stages column slices
+// and reads them with plain ldmatrix, so no transposed copy exists.
+//
+// Shared memory (227 KB at width 256): the encoding tile, two activation
+// buffers b0 / b1 of max(W, RW) columns, the bf16 head cotangents and the
+// ring. Each product's accumulators are complete before its epilogue, so
+// epilogues write in place after the product's closing barrier: the trunk
+// recompute runs in b0; the backward keeps the running cotangent in b1,
+// while b0 receives, through the same cp.async ring, the activation tile
+// whose ReLU mask the next epilogue needs. Each finished tile is copied to
+// the workspace with 16-byte stores.
 
-#include "mlp_common.cuh"
+#include "mma_pipe.cuh"
 
 namespace {
 
+constexpr int RBM = 128;        // rows per block
+constexpr int RTHREADS = 256;   // 8 warps: 2 row halves x 4 column quarters
+constexpr int KS = 32;          // weight rows (k) per ring stage
+constexpr int RSTAGES = 3;
+constexpr int RPAD = 8;         // shared row padding (bf16 elements)
+constexpr int CPAD = 64;        // input columns, zero-padded
+constexpr int LDX = CPAD + RPAD;
+constexpr int HEAD = 16;        // head columns, zero-padded
+constexpr int LDG = HEAD + RPAD;
+constexpr int OUT_COLS = 8;     // head columns of g_alpha and g_rgb
+constexpr int MAXD = 16;        // most trunk layers
+
 enum { HAS_BOTTLENECK = 1, ALPHA_FROM_BT = 2, RGB_FROM_BT = 4 };
+
+// The accumulators of one warp for an RBM x N product: 4 m16 tiles by NTW
+// n8 tiles, the warp's column quarter (for N = 16, warps of quarters 2 and
+// 3 hold none).
+template <int N>
+struct Frag {
+  static constexpr int NT = N / 8;
+  static constexpr int NTW = NT >= 4 ? NT / 4 : 1;
+  float c[4][NTW][4];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[i][j][e] = 0.0f;
+  }
+  __device__ static int row0() { return ((threadIdx.x >> 5) & 1) * 64; }
+  __device__ static int col0() { return (threadIdx.x >> 6) * NTW * 8; }
+};
+
+// A tile that a product copies into shared memory beside its weight
+// slices: RBM rows of `cols` bf16 columns (a multiple of 8).
+struct Side {
+  const bf16* src;  // global, row stride src_ld; null: no copy
+  int src_ld;
+  bf16* dst;        // shared, row stride dst_ld
+  int dst_ld;
+  int cols;
+};
+
+// acc += A @ B over K (a multiple of 16), with A[RBM x K] in shared memory
+// (row stride lda) and B = W for a (K x N) row-major W, or B = W^T for an
+// (N x K) row-major W when TRANS. Every thread of the block calls it. It
+// ends with a barrier, after which the ring, A and the side copy's tile
+// may be overwritten or read by any thread.
+template <int N, bool TRANS, int STAGE>
+__device__ void product(Frag<N>& acc, const bf16* a_s, int lda, int K,
+                        const bf16* __restrict__ w, bf16* ring,
+                        const Side& side = Side{nullptr, 0, nullptr, 0, 0}) {
+  constexpr int NTW = Frag<N>::NTW;
+  constexpr int LDW = TRANS ? KS + RPAD : N + RPAD;  // staged row stride
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
+  const int steps = (K + KS - 1) / KS;
+  const int side_vecs = side.src != nullptr ? RBM * (side.cols / 8) : 0;
+  const int side_step = (side_vecs + steps - 1) / steps;
+
+  auto load = [&](int t, int stage) {
+    bf16* ws = ring + stage * STAGE;
+    const int k0 = t * KS, kk = min(KS, K - k0);
+    if constexpr (!TRANS) {
+      // Rows k0 .. k0 + kk of W, stored (k, n).
+      for (int v = tid; v < kk * (N / 8); v += RTHREADS) {
+        const int r = v / (N / 8), c = (v % (N / 8)) * 8;
+        cp_async16(ws + r * LDW + c, w + (size_t)(k0 + r) * N + c, true);
+      }
+    } else {
+      // Columns k0 .. k0 + kk of every row of W, stored (n, k).
+      const int vpr = kk / 8;
+      for (int v = tid; v < N * vpr; v += RTHREADS) {
+        const int r = v / vpr, c = (v % vpr) * 8;
+        cp_async16(ws + r * LDW + c, w + (size_t)r * K + k0 + c, true);
+      }
+    }
+    const int v_end = min(side_vecs, (t + 1) * side_step);
+    const int vpr = side.cols / 8;
+    for (int v = t * side_step + tid; v < v_end; v += RTHREADS) {
+      const int r = v / vpr, c = (v % vpr) * 8;
+      cp_async16(side.dst + r * side.dst_ld + c,
+                 side.src + (size_t)r * side.src_ld + c, true);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < RSTAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<RSTAGES - 2>();
+    __syncthreads();  // slice t has landed; slice t - 1 is consumed
+    if (t + RSTAGES - 1 < steps)
+      load(t + RSTAGES - 1, (t + RSTAGES - 1) % RSTAGES);
+    cp_async_commit();
+    if (nb0 >= N) continue;
+    const bf16* ws = ring + (t % RSTAGES) * STAGE;
+    const int k0 = t * KS, kk = min(KS, K - k0);
+#pragma unroll
+    for (int ks = 0; ks < KS; ks += 16) {
+      if (ks >= kk) break;
+      uint32_t af[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldsm_x4(af[mt], a_s + (wm + mt * 16 + (lane & 15)) * lda + k0 + ks +
+                            ((lane >> 4) << 3));
+      if constexpr (NTW >= 2) {
+#pragma unroll
+        for (int jp = 0; jp < NTW / 2; ++jp) {
+          const int nb = nb0 + jp * 16;
+          uint32_t b[4];
+          if constexpr (!TRANS)
+            ldsm_x4_t(b, ws + (ks + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                                  LDW +
+                             nb + ((lane >> 4) << 3));
+          else
+            ldsm_x4(b, ws + (nb + (lane & 7) + ((lane >> 4) << 3)) * LDW +
+                           ks + (((lane >> 3) & 1) << 3));
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            mma16816(acc.c[mt][2 * jp], af[mt], b[0], b[1]);
+            mma16816(acc.c[mt][2 * jp + 1], af[mt], b[2], b[3]);
+          }
+        }
+      } else {
+        const int l16 = lane & 15;
+        uint32_t b[2];
+        if constexpr (!TRANS)
+          ldsm_x2_t(b, ws + (ks + (l16 & 7) + ((l16 >> 3) << 3)) * LDW + nb0);
+        else
+          ldsm_x2(b, ws + (nb0 + (l16 & 7)) * LDW + ks + ((l16 >> 3) << 3));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          mma16816(acc.c[mt][0], af[mt], b[0], b[1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// out (shared, row stride ldo) = bf16(act(acc + bias + row_bias)), with
+// row_bias (global, the block's first row, row stride N, or null) added on
+// the valid rows and the ReLU when `relu`.
+template <int N>
+__device__ void epi_act(const Frag<N>& acc, const bf16* __restrict__ bias,
+                        const bf16* __restrict__ row_bias, int rows_valid,
+                        bool relu, bf16* out, int ldo) {
+  const int lane = threadIdx.x & 31;
+  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
+  if (nb0 >= N) return;
+#pragma unroll
+  for (int j = 0; j < Frag<N>::NTW; ++j) {
+    const int c = nb0 + j * 8 + 2 * (lane & 3);
+    const float b0 = __bfloat162float(bias[c]);
+    const float b1 = __bfloat162float(bias[c + 1]);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
+        float v0 = acc.c[mt][j][2 * h] + b0;
+        float v1 = acc.c[mt][j][2 * h + 1] + b1;
+        if (row_bias != nullptr && r < rows_valid) {
+          const __nv_bfloat162 rb = *reinterpret_cast<const __nv_bfloat162*>(
+              row_bias + (size_t)r * N + c);
+          v0 += __low2float(rb);
+          v1 += __high2float(rb);
+        }
+        if (relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + r * ldo + c) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+  }
+}
+
+// A cotangent product rounded to bf16, zeroed where mask <= 0 (mask: the
+// layer's bf16 activation, the block's first row, row stride ldm, in
+// shared or global memory, or null), to shared memory (out, row stride
+// ldo) and as f32 to f32_out (global, the block's first row, row stride
+// N, valid rows only, or null).
+template <int N>
+__device__ void epi_grad(const Frag<N>& acc, const bf16* mask, int ldm,
+                         bf16* out, int ldo, float* __restrict__ f32_out,
+                         int rows_valid) {
+  const int lane = threadIdx.x & 31;
+  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
+  if (nb0 >= N) return;
+  const bf16 zero = __float2bfloat16(0.0f);
+#pragma unroll
+  for (int j = 0; j < Frag<N>::NTW; ++j) {
+    const int c = nb0 + j * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
+        __nv_bfloat162 v = __floats2bfloat162_rn(acc.c[mt][j][2 * h],
+                                                 acc.c[mt][j][2 * h + 1]);
+        if (mask != nullptr) {
+          const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162*>(
+              mask + (size_t)r * ldm + c);
+          if (!(__low2float(m) > 0.0f)) v.x = zero;
+          if (!(__high2float(m) > 0.0f)) v.y = zero;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + r * ldo + c) = v;
+        if (f32_out != nullptr && r < rows_valid)
+          *reinterpret_cast<float2*>(f32_out + (size_t)r * N + c) =
+              make_float2(__low2float(v), __high2float(v));
+      }
+  }
+}
+
+// out[r, c] (global f32, the block's first row, row stride ld) =
+// (add ? out[r, c] : 0) + acc, for the valid rows and the first ncols
+// columns. The same thread writes and later re-reads each element.
+template <int N>
+__device__ void epi_f32(const Frag<N>& acc, float* __restrict__ out, int ld,
+                        int ncols, int rows_valid, bool add) {
+  const int lane = threadIdx.x & 31;
+  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
+  if (nb0 >= N) return;
+#pragma unroll
+  for (int j = 0; j < Frag<N>::NTW; ++j)
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wm + mt * 16 + frag_row(lane, e);
+        const int c = nb0 + j * 8 + frag_col(lane, e);
+        if (c < ncols && r < rows_valid) {
+          float* p = out + (size_t)r * ld + c;
+          *p = (add ? *p : 0.0f) + acc.c[mt][j][e];
+        }
+      }
+}
+
+// src (global f32, the block's first row, row stride c_src) -> a bf16 tile
+// of COLS columns in shared memory (row stride ld), zero past c_src
+// columns and rows_valid rows.
+template <int COLS>
+__device__ void load_tile(const float* __restrict__ src, int c_src,
+                          int rows_valid, bf16* dst, int ld) {
+  for (int e = threadIdx.x; e < RBM * COLS; e += RTHREADS) {
+    const int r = e / COLS, c = e % COLS;
+    const float v =
+        r < rows_valid && c < c_src ? src[(size_t)r * c_src + c] : 0.0f;
+    dst[r * ld + c] = __float2bfloat16(v);
+  }
+}
+
+// The block's RBM x COLS bf16 tile from shared memory (row stride lds) to
+// the workspace (row stride COLS), in 16-byte vectors.
+template <int COLS>
+__device__ void store_tile(const bf16* src, int lds, bf16* __restrict__ dst) {
+  for (int v = threadIdx.x; v < RBM * (COLS / 8); v += RTHREADS) {
+    const int r = v / (COLS / 8), c = (v % (COLS / 8)) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * COLS + c) =
+        *reinterpret_cast<const uint4*>(src + r * lds + c);
+  }
+}
 
 struct NerfBwdArgs {
   const float* x;          // (n, c_in)
@@ -43,21 +326,14 @@ struct NerfBwdArgs {
   const bf16* w[MAXD];     // layer 0: (CPAD, W); others (W, W)
   const bf16* wx[MAXD];    // skip layers: (CPAD, W)
   const bf16* b[MAXD];
-  const bf16* wt[MAXD];    // transposes: layer 0 (W, CPAD); others (W, W)
-  const bf16* wxt[MAXD];   // (W, CPAD)
-  const bf16* bot_w;
+  const bf16* bot_w;       // (W, W)
   const bf16* bot_b;
-  const bf16* bot_wt;
   const bf16* al_w;        // (W, HEAD)
-  const bf16* al_b;
-  const bf16* al_wt;       // (HEAD, W)
   const bf16* rh_w;        // (W, RW)
   const bf16* rh_b;
-  const bf16* rh_wt;       // (RW, W)
   const bf16* rl_w;        // (RW, HEAD)
-  const bf16* rl_b;
-  const bf16* rl_wt;       // (HEAD, RW)
-  // Workspace, chunk-local rows; each row stride is its width.
+  // Workspace, chunk-local rows (a multiple of RBM); each row stride is
+  // its width.
   bf16* ws_x;              // (R, CPAD)
   bf16* ws_h[MAXD];        // (R, W)
   bf16* ws_bt;             // (R, W), with a bottleneck
@@ -70,146 +346,167 @@ struct NerfBwdArgs {
   int row0, rows, c_in, depth, skip_mask, flags;
 };
 
-template <int W>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(bf16) * (BM * LDX + 2 * BM * (W + SPAD) + 2 * BM * LDG +
-                         BK * (W + SPAD)) +
-         sizeof(float) * (NTHREADS / 32) * 256;
+// Widest product: the activation buffers' columns and the ring's size.
+template <int W, int RW>
+__host__ __device__ constexpr int bwd_cols() {
+  return W > RW ? (W > CPAD ? W : CPAD) : (RW > CPAD ? RW : CPAD);
+}
+
+// A ring stage holds KS rows of a (K x L) W or L rows of KS columns of an
+// (L x K) one.
+template <int L>
+__host__ __device__ constexpr int ring_stage() {
+  return KS * (L + RPAD) > L * (KS + RPAD) ? KS * (L + RPAD)
+                                           : L * (KS + RPAD);
 }
 
 template <int W, int RW>
-__global__ void __launch_bounds__(NTHREADS, 2)
-    nerf_bwd_rows_kernel(const __grid_constant__ NerfBwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LDH = W + SPAD;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* h0 = xs + BM * LDX;
-  bf16* h1 = h0 + BM * LDH;
-  bf16* gr_s = h1 + BM * LDH;
-  bf16* ga_s = gr_s + BM * LDG;
-  bf16* w_s = ga_s + BM * LDG;
-  float* scratch = reinterpret_cast<float*>(w_s + BK * LDH);
+constexpr size_t bwd_smem_bytes() {
+  constexpr int L = bwd_cols<W, RW>();
+  return sizeof(bf16) * (RBM * LDX + 2 * RBM * (L + RPAD) + 2 * RBM * LDG +
+                         RSTAGES * ring_stage<L>());
+}
 
-  const size_t lr = (size_t)blockIdx.x * BM;  // chunk-local first row
-  const int grow = a.row0 + (int)lr;          // global first row
-  const int rows_valid = min(BM, a.row0 + a.rows - grow);
+template <int W, int RW>
+__global__ void __launch_bounds__(RTHREADS, 1)
+    nerf_bwd_rows_kernel(const __grid_constant__ NerfBwdArgs a) {
+  constexpr int L = bwd_cols<W, RW>();
+  constexpr int LDB = L + RPAD;
+  constexpr int STAGE = ring_stage<L>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* b0 = xs + RBM * LDX;
+  bf16* b1 = b0 + RBM * LDB;
+  bf16* gr_s = b1 + RBM * LDB;
+  bf16* ga_s = gr_s + RBM * LDG;
+  bf16* ring = ga_s + RBM * LDG;
+
+  const size_t lr = (size_t)blockIdx.x * RBM;  // chunk-local first row
+  const int grow = a.row0 + (int)lr;           // global first row
+  const int rows_valid = min(RBM, a.row0 + a.rows - grow);
   const bool has_bt = a.flags & HAS_BOTTLENECK;
   const bool alpha_bt = a.flags & ALPHA_FROM_BT;
   const bool rgb_bt = a.flags & RGB_FROM_BT;
   const int last = a.depth - 1;
 
-  // ---- forward recompute, saving every activation to the workspace.
-  load_tile<CPAD>(a.x, a.c_in, grow, rows_valid, xs, LDX, a.ws_x + lr * CPAD);
-  const bf16* cur = xs;
-  int ldc = LDX, kc = CPAD;
-  bf16* h = h0;
+  load_tile<CPAD>(a.x + (size_t)grow * a.c_in, a.c_in, rows_valid, xs, LDX);
+  load_tile<HEAD>(a.g_rgb + (size_t)grow * OUT_COLS, OUT_COLS, rows_valid,
+                  gr_s, LDG);
+  load_tile<HEAD>(a.g_alpha + (size_t)grow * OUT_COLS, OUT_COLS, rows_valid,
+                  ga_s, LDG);
+  __syncthreads();
+  store_tile<CPAD>(xs, LDX, a.ws_x + lr * CPAD);
+  store_tile<HEAD>(gr_s, LDG, a.ws_gr + lr * HEAD);
+  store_tile<HEAD>(ga_s, LDG, a.ws_ga + lr * HEAD);
+
+  // ---- forward recompute, in place in b0, saving every activation.
   for (int i = 0; i < a.depth; ++i) {
-    Acc<W> acc;
+    Frag<W> acc;
     acc.zero();
-    accumulate<W>(acc, cur, ldc, kc, a.w[i], w_s);
+    if (i == 0)
+      product<W, false, STAGE>(acc, xs, LDX, CPAD, a.w[0], ring);
+    else
+      product<W, false, STAGE>(acc, b0, LDB, W, a.w[i], ring);
     if (i > 0 && ((a.skip_mask >> i) & 1))
-      accumulate<W>(acc, xs, LDX, CPAD, a.wx[i], w_s);
-    h = (i & 1) ? h1 : h0;
-    epilogue_bf16<W>(acc, a.b[i], nullptr, rows_valid, true, h, LDH, scratch,
-                     a.ws_h[i] + lr * W);
-    cur = h;
-    ldc = LDH;
-    kc = W;
+      product<W, false, STAGE>(acc, xs, LDX, CPAD, a.wx[i], ring);
+    epi_act<W>(acc, a.b[i], nullptr, rows_valid, true, b0, LDB);
+    __syncthreads();
+    store_tile<W>(b0, LDB, a.ws_h[i] + lr * W);
   }
-  bf16* other = (h == h0) ? h1 : h0;
-  const bf16* bt = h;
   if (has_bt) {
-    Acc<W> acc;
+    Frag<W> acc;
     acc.zero();
-    accumulate<W>(acc, h, LDH, W, a.bot_w, w_s);
-    epilogue_bf16<W>(acc, a.bot_b, nullptr, rows_valid, false, other, LDH,
-                     scratch, a.ws_bt + lr * W);
-    bt = other;
+    product<W, false, STAGE>(acc, b0, LDB, W, a.bot_w, ring);
+    epi_act<W>(acc, a.bot_b, nullptr, rows_valid, false, b1, LDB);
+    __syncthreads();
+    store_tile<W>(b1, LDB, a.ws_bt + lr * W);
   }
-  {
-    const bf16* src = rgb_bt ? bt : h;
-    bf16* y = (src == h0) ? h1 : h0;
-    Acc<RW> acc;
+  {  // y = relu(bt or h @ rh_w + rh_b + row_bias), into b0
+    Frag<RW> acc;
     acc.zero();
-    accumulate<RW>(acc, src, LDH, W, a.rh_w, w_s);
+    product<RW, false, STAGE>(acc, rgb_bt ? b1 : b0, LDB, W, a.rh_w, ring);
     const bf16* rb =
         a.row_bias != nullptr ? a.row_bias + (size_t)grow * RW : nullptr;
-    epilogue_bf16<RW>(acc, a.rh_b, rb, rows_valid, true, y, LDH, scratch,
-                      a.ws_y + lr * RW);
+    epi_act<RW>(acc, a.rh_b, rb, rows_valid, true, b0, LDB);
+    __syncthreads();
+    store_tile<RW>(b0, LDB, a.ws_y + lr * RW);
   }
 
-  // ---- backward. Head cotangents, rounded to bf16.
-  load_tile<HEAD>(a.g_rgb, OUT_COLS, grow, rows_valid, gr_s, LDG,
-                  a.ws_gr + lr * HEAD);
-  load_tile<HEAD>(a.g_alpha, OUT_COLS, grow, rows_valid, ga_s, LDG,
-                  a.ws_ga + lr * HEAD);
-  // gy = bf16(g_rgb @ rgb_logit^T), masked by y > 0; drb = gy in f32.
-  bf16* gy = h0;
+  // ---- backward. gy = bf16(g_rgb @ rgb_logit^T), masked by y > 0, in
+  // place over y; drb = gy in f32.
   {
-    Acc<RW> acc;
+    Frag<RW> acc;
     acc.zero();
-    accumulate<RW>(acc, gr_s, LDG, HEAD, a.rl_wt, w_s);
+    product<RW, true, STAGE>(acc, gr_s, LDG, HEAD, a.rl_w, ring);
+    epi_grad<RW>(acc, b0, LDB, b0, LDB,
+                 a.drb != nullptr ? a.drb + (size_t)grow * RW : nullptr,
+                 rows_valid);
     __syncthreads();
-    epilogue_grad<RW>(acc, a.ws_y + lr * RW, gy, LDH, a.ws_gy + lr * RW,
-                      a.drb != nullptr ? a.drb + (size_t)grow * RW : nullptr,
-                      rows_valid, scratch);
+    store_tile<RW>(b0, LDB, a.ws_gy + lr * RW);
   }
-  // g_bt: the head input cotangents routed to the bottleneck.
-  bf16* gbt = h1;
+  // g_bt, into b1: the head input cotangents routed to the bottleneck.
   if (has_bt) {
-    Acc<W> acc;
+    Frag<W> acc;
     acc.zero();
-    if (rgb_bt) accumulate<W>(acc, gy, LDH, RW, a.rh_wt, w_s);
-    if (alpha_bt) accumulate<W>(acc, ga_s, LDG, HEAD, a.al_wt, w_s);
+    if (rgb_bt) product<W, true, STAGE>(acc, b0, LDB, RW, a.rh_w, ring);
+    if (alpha_bt) product<W, true, STAGE>(acc, ga_s, LDG, HEAD, a.al_w, ring);
+    epi_grad<W>(acc, nullptr, 0, b1, LDB, nullptr, rows_valid);
     __syncthreads();
-    epilogue_grad<W>(acc, nullptr, gbt, LDH, a.ws_gbt + lr * W, nullptr,
-                     rows_valid, scratch);
+    store_tile<W>(b1, LDB, a.ws_gbt + lr * W);
   }
   // g_h of the last trunk layer: the rest of the head cotangents plus the
-  // bottleneck's input cotangent; masked, it is that layer's g_pre.
-  bf16* p = h0;
-  bf16* q = h1;
+  // bottleneck's input cotangent; masked, it is that layer's g_pre, in b1.
   {
-    Acc<W> acc;
+    Frag<W> acc;
     acc.zero();
-    if (!(has_bt && rgb_bt)) accumulate<W>(acc, gy, LDH, RW, a.rh_wt, w_s);
+    if (!(has_bt && rgb_bt))
+      product<W, true, STAGE>(acc, b0, LDB, RW, a.rh_w, ring);
     if (!(has_bt && alpha_bt))
-      accumulate<W>(acc, ga_s, LDG, HEAD, a.al_wt, w_s);
-    if (has_bt) accumulate<W>(acc, gbt, LDH, W, a.bot_wt, w_s);
+      product<W, true, STAGE>(acc, ga_s, LDG, HEAD, a.al_w, ring);
+    if (has_bt) product<W, true, STAGE>(acc, b1, LDB, W, a.bot_w, ring);
+    epi_grad<W>(acc, a.ws_h[last] + lr * W, W, b1, LDB, nullptr, rows_valid);
     __syncthreads();
-    epilogue_grad<W>(acc, a.ws_h[last] + lr * W, p, LDH,
-                     a.ws_gp[last] + lr * W, nullptr, rows_valid, scratch);
   }
-  // The trunk, last layer first. dx = (skip product) + (layer-0 product).
+  // The trunk, last layer first: b1 holds layer i's g_pre, b0 receives
+  // layer i - 1's activation for the next mask. dx = (skip product) +
+  // (layer-0 product).
   float* dx = a.dx + (size_t)grow * a.c_in;
   bool dx_written = false;
   for (int i = last; i >= 0; --i) {
+    store_tile<W>(b1, LDB, a.ws_gp[i] + lr * W);
     if (i > 0 && ((a.skip_mask >> i) & 1)) {
-      Acc<CPAD> acc;
+      Frag<CPAD> acc;
       acc.zero();
-      accumulate<CPAD>(acc, p, LDH, W, a.wxt[i], w_s);
-      epilogue_f32<CPAD>(acc, dx, a.c_in, a.c_in, rows_valid, dx_written,
-                         scratch);
+      product<CPAD, true, STAGE>(acc, b1, LDB, W, a.wx[i], ring);
+      epi_f32<CPAD>(acc, dx, a.c_in, a.c_in, rows_valid, dx_written);
       dx_written = true;
     }
     if (i == 0) {
-      Acc<CPAD> acc;
+      Frag<CPAD> acc;
       acc.zero();
-      accumulate<CPAD>(acc, p, LDH, W, a.wt[0], w_s);
-      epilogue_f32<CPAD>(acc, dx, a.c_in, a.c_in, rows_valid, dx_written,
-                         scratch);
+      product<CPAD, true, STAGE>(acc, b1, LDB, W, a.w[0], ring);
+      epi_f32<CPAD>(acc, dx, a.c_in, a.c_in, rows_valid, dx_written);
     } else {
-      Acc<W> acc;
+      Frag<W> acc;
       acc.zero();
-      accumulate<W>(acc, p, LDH, W, a.wt[i], w_s);
+      product<W, true, STAGE>(acc, b1, LDB, W, a.w[i], ring,
+                              Side{a.ws_h[i - 1] + lr * W, W, b0, LDB, W});
+      epi_grad<W>(acc, b0, LDB, b1, LDB, nullptr, rows_valid);
       __syncthreads();
-      epilogue_grad<W>(acc, a.ws_h[i - 1] + lr * W, q, LDH,
-                       a.ws_gp[i - 1] + lr * W, nullptr, rows_valid, scratch);
-      bf16* t = p;
-      p = q;
-      q = t;
     }
   }
+}
+
+template <int W, int RW>
+cudaError_t launch_bwd(const NerfBwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<W, RW>();
+  cudaError_t err = cudaFuncSetAttribute(
+      nerf_bwd_rows_kernel<W, RW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (a.rows + RBM - 1) / RBM;
+  nerf_bwd_rows_kernel<W, RW><<<grid, RTHREADS, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -217,15 +514,15 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 extern "C" {
 
 // One chunk of rows [row0, row0 + rows) of the NeRF MLP backward's row
-// pass. p (device pointers, null where absent): x, row_bias, g_alpha,
-// g_rgb, dx, drb, w[MAXD], wx[MAXD], b[MAXD], wt[MAXD], wxt[MAXD], bot_w,
-// bot_b, bot_wt, al_w, al_b, al_wt, rh_w, rh_b, rh_wt, rl_w, rl_b, rl_wt,
+// pass; the workspace holds a multiple of 128 chunk-local rows. p (device
+// pointers, null where absent): x, row_bias, g_alpha, g_rgb, dx, drb,
+// w[MAXD], wx[MAXD], b[MAXD], bot_w, bot_b, al_w, rh_w, rh_b, rl_w,
 // ws_x, ws_h[MAXD], ws_bt, ws_y, ws_gp[MAXD], ws_gbt, ws_gy, ws_ga, ws_gr.
 // Returns the launch's cudaError_t.
 int nerf_mlp_backward_rows(void* const* p, int row0, int rows, int c_in,
                            int depth, int skip_mask, int flags, int width,
                            int rgb_width, int device, void* stream) {
-  if (rows <= 0 || c_in > CPAD || depth < 1 || depth > MAXD)
+  if (rows <= 0 || c_in < 1 || c_in > CPAD || depth < 1 || depth > MAXD)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -240,20 +537,12 @@ int nerf_mlp_backward_rows(void* const* p, int row0, int rows, int c_in,
   for (int i = 0; i < MAXD; ++i) a.w[i] = (const bf16*)p[k++];
   for (int i = 0; i < MAXD; ++i) a.wx[i] = (const bf16*)p[k++];
   for (int i = 0; i < MAXD; ++i) a.b[i] = (const bf16*)p[k++];
-  for (int i = 0; i < MAXD; ++i) a.wt[i] = (const bf16*)p[k++];
-  for (int i = 0; i < MAXD; ++i) a.wxt[i] = (const bf16*)p[k++];
   a.bot_w = (const bf16*)p[k++];
   a.bot_b = (const bf16*)p[k++];
-  a.bot_wt = (const bf16*)p[k++];
   a.al_w = (const bf16*)p[k++];
-  a.al_b = (const bf16*)p[k++];
-  a.al_wt = (const bf16*)p[k++];
   a.rh_w = (const bf16*)p[k++];
   a.rh_b = (const bf16*)p[k++];
-  a.rh_wt = (const bf16*)p[k++];
   a.rl_w = (const bf16*)p[k++];
-  a.rl_b = (const bf16*)p[k++];
-  a.rl_wt = (const bf16*)p[k++];
   a.ws_x = (bf16*)p[k++];
   for (int i = 0; i < MAXD; ++i) a.ws_h[i] = (bf16*)p[k++];
   a.ws_bt = (bf16*)p[k++];
@@ -269,9 +558,11 @@ int nerf_mlp_backward_rows(void* const* p, int row0, int rows, int c_in,
   a.depth = depth;
   a.skip_mask = skip_mask;
   a.flags = flags;
-  if (width == 256 && rgb_width == 128)
-    return (int)launch_rows(nerf_bwd_rows_kernel<256, 128>, a, rows,
-                            bwd_smem_bytes<256>(), (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  // The widths of ops/fused_mlp.py _NERF_WIDTHS.
+  if (width == 256 && rgb_width == 128) return (int)launch_bwd<256, 128>(a, s);
+  if (width == 128 && rgb_width == 128) return (int)launch_bwd<128, 128>(a, s);
+  if (width == 32 && rgb_width == 128) return (int)launch_bwd<32, 128>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,10 +10,10 @@
 // pre-activation cotangent to a workspace, and this file forms the
 // products:
 //
-//   dw_partial_kernel  one block per (64 x 64 tile of one dW, row split):
-//                      wmma bf16 products with f32 accumulators over the
-//                      split's rows, plus the f32 column sums of g (the
-//                      bias gradient), stored to the split's own slot;
+//   dw_partial_kernel  one block per (TM x TN tile of one dW, row split):
+//                      the f32 products over the split's rows, plus the
+//                      f32 column sums of G (the bias gradient), stored to
+//                      the split's own slot;
 //   dw_reduce_kernel   out = (accumulate ? out : 0) + sum over splits, in
 //                      split order.
 //
@@ -24,18 +24,27 @@
 // job over all of them sums the chains' products, and a job over the first
 // `rows` of them sees the primal chain only.
 //
-// Bound: 2 * rows * m * n FLOP per job (the same as the Pallas kernels'
-// in-body dW); bytes: each block reads its rows of a 64-column strip of A
-// and of G, so A and G are read n/64 and m/64 times over. That re-reading,
-// not the tensor rate, is what this simple tiling leaves on the table.
+// Bound on an H100 SXM: bytes. A job reads (m + n) x 2 bytes a row for
+// 2 m n FLOP: at most 128 FLOP a byte for a 256 x 256 weight, under the
+// ~295 at which the tensor rate would bind. So the design reads each byte
+// as few times as it can: a block owns a tall tile, all TN = 256 (or 128)
+// columns of G against TM = 128 columns of A, so A is read once and G
+// ceil(m / 128) times (twice at width 256); a ring of DW_STAGES cp.async
+// stages keeps 32-row strips of both in flight while mma.sync products run
+// on the strip that has landed. 8 warps, each a 64 x TN/4 tile of the
+// products in registers; A^T's fragments come from the row-major strip
+// through ldmatrix.trans, G's likewise.
 
-#include "mlp_common.cuh"
+#include "mma_pipe.cuh"
 
 namespace {
 
-constexpr int TILE = 64;          // dW tile, both dimensions
-constexpr int DBR = 32;           // rows staged per step
-constexpr int LDT = TILE + SPAD;  // staged row stride
+constexpr int DW_THREADS = 256;   // 8 warps: 2 along m x 4 along n
+constexpr int TM = 128;           // dW rows (columns of A) per block
+constexpr int KR = 32;            // workspace rows per stage
+constexpr int DW_STAGES = 4;
+constexpr int DPAD = 8;           // shared row padding (bf16 elements)
+constexpr int LDA_S = TM + DPAD;
 constexpr int MAX_JOBS = 24;
 
 struct DwJob {
@@ -47,7 +56,7 @@ struct DwJob {
   int bias_rows;    // column sums of G over its first bias_rows rows; 0: none
   int out;          // offset of dW in the flat f32 output
   int bias_out;     // offset of the bias gradient (n floats)
-  int tiles_n;      // ceil(n / TILE)
+  int tiles_n;      // ceil(n / TN)
   int tile0;        // first grid tile of this job
 };
 
@@ -59,92 +68,142 @@ struct DwArgs {
   float* partial;    // splits x stride
 };
 
-__global__ void __launch_bounds__(NTHREADS) dw_partial_kernel(
-    const __grid_constant__ DwArgs a) {
-  __shared__ __align__(128) bf16 a_s[DBR * LDT];
-  __shared__ __align__(128) bf16 g_s[DBR * LDT];
+template <int TN>
+__host__ __device__ constexpr int dw_stage_elems() {
+  return KR * LDA_S + KR * (TN + DPAD);
+}
+
+template <int TN>
+constexpr size_t dw_smem_bytes() {
+  return sizeof(bf16) * DW_STAGES * dw_stage_elems<TN>();
+}
+
+template <int TN>
+__global__ void __launch_bounds__(DW_THREADS, TN == 128 ? 2 : 1)
+    dw_partial_kernel(const __grid_constant__ DwArgs a) {
+  constexpr int LDG_S = TN + DPAD;
+  constexpr int SE = dw_stage_elems<TN>();
+  constexpr int WN = TN / 4;   // columns per warp
+  constexpr int NTW = WN / 8;  // n8 tiles per warp (even)
+  extern __shared__ __align__(128) unsigned char dw_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(dw_smem);
+
   int jb = 0;
   while (jb + 1 < a.njobs && (int)blockIdx.x >= a.jobs[jb + 1].tile0) ++jb;
   const DwJob& job = a.jobs[jb];
   const int tile = blockIdx.x - job.tile0;
-  const int m0 = (tile / job.tiles_n) * TILE;
-  const int n0 = (tile % job.tiles_n) * TILE;
+  const int m0 = (tile / job.tiles_n) * TM;
+  const int n0 = (tile % job.tiles_n) * TN;
   const int split = blockIdx.y;
-  const int per = ((job.rows + a.splits - 1) / a.splits + DBR - 1) / DBR * DBR;
+  const int per = ((job.rows + a.splits - 1) / a.splits + KR - 1) / KR * KR;
   const int r_begin = min(job.rows, split * per);
   const int r_end = min(job.rows, r_begin + per);
+  const int steps = (r_end - r_begin + KR - 1) / KR;
 
-  const int warp = threadIdx.x >> 5;
-  const int rg = warp & 3, cg = warp >> 2;
-  const bool m_ok = m0 + rg * 16 < job.m;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp & 1) * 64;     // this warp's first row of the tile
+  const int wn = (warp >> 1) * WN;    // and first column
   const bool do_bias = job.bias_rows > 0 && m0 == 0;
-  float col_sum = 0.0f;  // thread t < TILE: column n0 + t of the bias
+  const int bias_end = min(r_end, job.bias_rows);
+  float col_sum = 0.0f;  // thread t < TN: column n0 + t of the bias
 
-  for (int r0 = r_begin; r0 < r_end; r0 += DBR) {
-    __syncthreads();  // the previous step's tiles are consumed
-    // 8 bf16 (16 bytes) per vector; m and n are multiples of 16, so a
-    // vector lies wholly inside or wholly outside the matrix.
-    for (int v = threadIdx.x; v < 2 * DBR * (TILE / 8); v += NTHREADS) {
-      const bool is_g = v >= DBR * (TILE / 8);
-      const int u = is_g ? v - DBR * (TILE / 8) : v;
-      const int r = u / (TILE / 8), c = (u % (TILE / 8)) * 8;
-      const int row = r0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (is_g) {
-        if (row < r_end && n0 + c < job.n)
-          val = *reinterpret_cast<const uint4*>(
-              job.g + (size_t)row * job.ldg + n0 + c);
-        *reinterpret_cast<uint4*>(g_s + r * LDT + c) = val;
-      } else {
-        if (row < r_end && m0 + c < job.m)
-          val = *reinterpret_cast<const uint4*>(
-              job.a + (size_t)row * job.lda + m0 + c);
-        *reinterpret_cast<uint4*>(a_s + r * LDT + c) = val;
-      }
+  float acc[4][NTW][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  // Strip `step` (KR rows of A's TM columns and G's TN columns) into
+  // `stage`; rows past the split and columns past the matrix read as 0.
+  auto load = [&](int step, int stage) {
+    bf16* as = smem + stage * SE;
+    bf16* gs = as + KR * LDA_S;
+    const int r0 = r_begin + step * KR;
+#pragma unroll
+    for (int v = tid; v < KR * (TM / 8); v += DW_THREADS) {
+      const int r = v / (TM / 8), c = (v % (TM / 8)) * 8;
+      const bool ok = r0 + r < r_end && m0 + c < job.m;
+      cp_async16(as + r * LDA_S + c,
+                 ok ? job.a + (size_t)(r0 + r) * job.lda + m0 + c : job.a,
+                 ok);
     }
-    __syncthreads();
-    if (do_bias && (int)threadIdx.x < TILE) {
-      const int last = min(DBR, min(r_end, job.bias_rows) - r0);
+#pragma unroll
+    for (int v = tid; v < KR * (TN / 8); v += DW_THREADS) {
+      const int r = v / (TN / 8), c = (v % (TN / 8)) * 8;
+      const bool ok = r0 + r < r_end && n0 + c < job.n;
+      cp_async16(gs + r * LDG_S + c,
+                 ok ? job.g + (size_t)(r0 + r) * job.ldg + n0 + c : job.g,
+                 ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < DW_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<DW_STAGES - 2>();
+    __syncthreads();  // strip t has landed; strip t - 1 is consumed
+    if (t + DW_STAGES - 1 < steps)
+      load(t + DW_STAGES - 1, (t + DW_STAGES - 1) % DW_STAGES);
+    cp_async_commit();
+    const bf16* as = smem + (t % DW_STAGES) * SE;
+    const bf16* gs = as + KR * LDA_S;
+    if (do_bias && tid < TN) {
+      const int last = min(KR, bias_end - (r_begin + t * KR));
       for (int r = 0; r < last; ++r)
-        col_sum += __bfloat162float(g_s[r * LDT + threadIdx.x]);
+        col_sum += __bfloat162float(gs[r * LDG_S + tid]);
     }
-    if (m_ok) {
 #pragma unroll
-      for (int ks = 0; ks < DBR; ks += 16) {
-        // A^T: element (m, k) of the fragment is A[k][m], a column-major
-        // read of the staged rows.
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-        wmma::load_matrix_sync(fa, a_s + ks * LDT + rg * 16, LDT);
+    for (int ks = 0; ks < KR; ks += 16) {
+      // A^T fragments: matrix i of lane group i = lane / 8 holds k offset
+      // (i / 2) * 8 and m offset (i % 2) * 8.
+      uint32_t af[4][4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int nt = cg + 2 * j;
-          if (n0 + nt * 16 < job.n) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-                fb;
-            wmma::load_matrix_sync(fb, g_s + ks * LDT + nt * 16, LDT);
-            wmma::mma_sync(acc[j], fa, fb, acc[j]);
-          }
+      for (int mt = 0; mt < 4; ++mt)
+        if (m0 + wm + mt * 16 < job.m)
+          ldsm_x4_t(af[mt], as + (ks + (lane & 7) + ((lane >> 4) << 3)) *
+                                     LDA_S +
+                                wm + mt * 16 + (((lane >> 3) & 1) << 3));
+#pragma unroll
+      for (int jp = 0; jp < NTW / 2; ++jp) {
+        const int nb = wn + jp * 16;
+        if (n0 + nb >= job.n) continue;
+        uint32_t bfr[4];
+        ldsm_x4_t(bfr, gs + (ks + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                                LDG_S +
+                           nb + ((lane >> 4) << 3));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (m0 + wm + mt * 16 >= job.m) continue;
+          mma16816(acc[mt][2 * jp], af[mt], bfr[0], bfr[1]);
+          mma16816(acc[mt][2 * jp + 1], af[mt], bfr[2], bfr[3]);
         }
       }
     }
   }
+  cp_async_wait<0>();
 
   float* slot = a.partial + (size_t)split * a.stride;
-  if (m_ok) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int nt = cg + 2 * j;
-      if (n0 + nt * 16 < job.n)
-        wmma::store_matrix_sync(
-            slot + job.out + (size_t)(m0 + rg * 16) * job.n + n0 + nt * 16,
-            acc[j], job.n, wmma::mem_row_major);
+  for (int mt = 0; mt < 4; ++mt) {
+    const int row = m0 + wm + mt * 16 + (lane >> 2);
+    if (row >= job.m) continue;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int col = n0 + wn + j * 8 + 2 * (lane & 3);
+      if (col >= job.n) continue;
+      float* p = slot + job.out + (size_t)row * job.n + col;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][j][0], acc[mt][j][1]);
+      *reinterpret_cast<float2*>(p + 8 * (size_t)job.n) =
+          make_float2(acc[mt][j][2], acc[mt][j][3]);
     }
   }
-  if (do_bias && (int)threadIdx.x < TILE && n0 + (int)threadIdx.x < job.n)
-    slot[job.bias_out + n0 + threadIdx.x] = col_sum;
+  if (do_bias && tid < TN && n0 + tid < job.n)
+    slot[job.bias_out + n0 + tid] = col_sum;
 }
 
 __global__ void dw_reduce_kernel(const float* __restrict__ partial,
@@ -159,6 +218,17 @@ __global__ void dw_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
+template <int TN>
+cudaError_t launch_partial(const DwArgs& a, int tiles, cudaStream_t s) {
+  const size_t smem = dw_smem_bytes<TN>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dw_partial_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dw_partial_kernel<TN><<<dim3(tiles, a.splits), DW_THREADS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -166,13 +236,16 @@ extern "C" {
 // Adds the weight gradients of one chunk into `out`, in a fixed order.
 //   ptrs:  2 per job: A, G (device pointers)
 //   ints:  8 per job: lda, ldg, m, n, rows, bias_rows, out, bias_out
+//   tile_n: 256 or 128, the block tile's columns (at least every job's n
+//     for one pass over A);
 //   partial: splits x stride floats of scratch; out: stride floats;
 //   accumulate: 0 for the first chunk (out is overwritten), 1 after.
 // Offsets must be multiples of 8 floats. Returns a cudaError_t.
-int weight_grad(void* const* ptrs, const int* ints, int njobs, int splits,
-                float* partial, long long stride, float* out, int accumulate,
-                int device, void* stream) {
-  if (njobs <= 0 || njobs > MAX_JOBS || splits <= 0)
+int weight_grad(void* const* ptrs, const int* ints, int njobs, int tile_n,
+                int splits, float* partial, long long stride, float* out,
+                int accumulate, int device, void* stream) {
+  if (njobs <= 0 || njobs > MAX_JOBS || splits <= 0 ||
+      (tile_n != 128 && tile_n != 256))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -192,19 +265,19 @@ int weight_grad(void* const* ptrs, const int* ints, int njobs, int splits,
     job.out = v[6];
     job.bias_out = v[7];
     if (job.m % 16 || job.n % 16 || job.lda % 8 || job.ldg % 8 ||
-        job.out % 8 || job.rows < 0)
+        job.out % 8 || job.rows < 0 || job.m > job.lda || job.n > job.ldg)
       return (int)cudaErrorInvalidValue;
-    job.tiles_n = (job.n + TILE - 1) / TILE;
+    job.tiles_n = (job.n + tile_n - 1) / tile_n;
     job.tile0 = tiles;
-    tiles += ((job.m + TILE - 1) / TILE) * job.tiles_n;
+    tiles += ((job.m + TM - 1) / TM) * job.tiles_n;
   }
   a.njobs = njobs;
   a.splits = splits;
   a.stride = stride;
   a.partial = partial;
   cudaStream_t s = (cudaStream_t)stream;
-  dw_partial_kernel<<<dim3(tiles, splits), NTHREADS, 0, s>>>(a);
-  err = cudaGetLastError();
+  err = tile_n == 256 ? launch_partial<256>(a, tiles, s)
+                      : launch_partial<128>(a, tiles, s);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (int)((stride + 255) / 256 < 4096 ? (stride + 255) / 256
                                                        : 4096);

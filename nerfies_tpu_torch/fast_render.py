@@ -63,7 +63,12 @@ def _apply_warp_fused(params, model, points, warp_ids, warp_extra):
   else:
     trunk_depth = int(kwargs.get('trunk_depth', 6))
 
+  # The encoding's kwargs as the warp field reads them (models/warping.py),
+  # as the training warp passes them (fused_train.apply_warp).
   pe = encoding.posenc(points, num_freqs=model.num_warp_freqs,
+                       min_freq_log2=kwargs.get('min_freq_log2', 0.0),
+                       max_freq_log2=kwargs.get('max_freq_log2'),
+                       use_identity=kwargs.get('use_identity_map', True),
                        alpha=warp_extra.get('alpha'))
   c_pe = pe.shape[-1]
   embed = _glo_lookup(warp_params['metadata_encoder'], warp_ids)  # (B, F)

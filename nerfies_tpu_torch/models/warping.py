@@ -26,12 +26,19 @@ def _metadata_encoder(metadata_encoder_type, num_embeddings, features,
 def translation_field(num_freqs: int, num_embeddings: int,
                       num_embedding_features: int,
                       use_identity_map: bool = True,
+                      min_freq_log2: float = 0.0,
+                      max_freq_log2: Optional[float] = None,
                       metadata_encoder_type: str = 'glo',
                       skips: Sequence[int] = (4,),
                       depth: int = 6,
                       hidden_channels: int = 128,
                       generator: Optional[torch.Generator] = None) -> dict:
-  """TranslationField: {'metadata_encoder', 'mlp': hidden_i + 'logit'}."""
+  """TranslationField: {'metadata_encoder', 'mlp': hidden_i + 'logit'}.
+
+  min_freq_log2 and max_freq_log2 set the encoding's bands, which the
+  warp reads from the model's warp_kwargs; they shape no param.
+  """
+  del min_freq_log2, max_freq_log2
   pe = encoding.posenc_output_dim(3, num_freqs, use_identity_map)
   return {
       'metadata_encoder': _metadata_encoder(
@@ -47,6 +54,8 @@ def translation_field(num_freqs: int, num_embeddings: int,
 def se3_field(num_freqs: int, num_embeddings: int,
               num_embedding_features: int,
               use_identity_map: bool = True,
+              min_freq_log2: float = 0.0,
+              max_freq_log2: Optional[float] = None,
               metadata_encoder_type: str = 'glo',
               skips: Sequence[int] = (4,),
               trunk_depth: int = 6,
@@ -60,8 +69,10 @@ def se3_field(num_freqs: int, num_embeddings: int,
   """SE3Field: {'metadata_encoder', 'trunk', 'branches_wv' | 'branches_w/v'}.
 
   The pivot and translation branches (use_pivot, use_translation) are
-  not ported; fast_render does not serve them either.
+  not ported; fast_render does not serve them either. min_freq_log2 and
+  max_freq_log2 shape no param, as in translation_field.
   """
+  del min_freq_log2, max_freq_log2
   pe = encoding.posenc_output_dim(3, num_freqs, use_identity_map)
   tree = {
       'metadata_encoder': _metadata_encoder(

@@ -132,8 +132,8 @@ def load() -> ctypes.CDLL:
       lib.warp_train_forward.restype = i32
       lib.warp_train_backward_rows.argtypes = [ptr] + [i32] * 12 + [ptr]
       lib.warp_train_backward_rows.restype = i32
-      lib.weight_grad.argtypes = [ptr, ptr, i32, i32, ptr, ctypes.c_longlong,
-                                  ptr, i32, i32, ptr]
+      lib.weight_grad.argtypes = [ptr, ptr, i32, i32, i32, ptr,
+                                  ctypes.c_longlong, ptr, i32, i32, ptr]
       lib.weight_grad.restype = i32
       lib.fused_mlp_error_string.argtypes = [i32]
       lib.fused_mlp_error_string.restype = ctypes.c_char_p

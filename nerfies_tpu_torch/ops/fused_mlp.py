@@ -42,7 +42,11 @@ from nerfies_tpu_torch.ops import _build
 _PE_PAD = 64
 _HEAD_PAD = 16
 _MAX_DEPTH = 16
-_NERF_WIDTHS = ((256, 128),)  # (trunk width, rgb branch width)
+# (trunk width, rgb branch width) of the NeRF kernels: the bench and full
+# configs (256, 128), configs/test_vrig.gin (128, 128) and the small
+# verification model (32, 128).
+_NERF_WIDTHS = ((256, 128), (128, 128), (32, 128))
+# Every warp field of the config zoo is 128 wide (models/warping.py).
 _WARP_WIDTHS = (128,)
 _OUT_COLS = 8
 
@@ -297,14 +301,24 @@ def _check_operands(tensors, device, name: str) -> None:
       raise ValueError(f'{name}: operands must be 16-byte aligned')
 
 
+def check_nerf_shape(name: str, width: int, rgb_width: int, trunk_depth: int,
+                     c_in: int) -> None:
+  """Raises ValueError unless the NeRF kernels are built for this shape."""
+  if (width, rgb_width) not in _NERF_WIDTHS:
+    raise ValueError(f'{name}: kernels built for (width, rgb width) in '
+                     f'{_NERF_WIDTHS}, got {(width, rgb_width)}')
+  if not 1 <= trunk_depth <= _MAX_DEPTH:
+    raise ValueError(f'{name}: trunk depth must be in [1, {_MAX_DEPTH}], '
+                     f'got {trunk_depth}')
+  if not 1 <= c_in <= _PE_PAD:
+    raise ValueError(f'{name}: the kernels take 1 to {_PE_PAD} input '
+                     f'columns, got {c_in}')
+
+
 def _launch_nerf(x, rgb_row_bias, ops: NerfOperands, trunk_depth, skips):
   name = 'nerf_mlp_forward'
   _check_rows(x, name)
-  if (ops.width, ops.rgb_width) not in _NERF_WIDTHS:
-    raise ValueError(f'{name}: kernel built for (width, rgb width) in '
-                     f'{_NERF_WIDTHS}, got {(ops.width, ops.rgb_width)}')
-  if not 1 <= trunk_depth <= _MAX_DEPTH:
-    raise ValueError(f'{name}: trunk depth must be in [1, {_MAX_DEPTH}]')
+  check_nerf_shape(name, ops.width, ops.rgb_width, trunk_depth, x.shape[1])
   n, c_in = x.shape
   x = x.float().contiguous()
   if ops.rgb_hidden is None or rgb_row_bias is None:
@@ -455,11 +469,11 @@ warp_trunk_forward.launches = 0
 
 # Rows per pass of the backward kernels: the workspace of the NeRF MLP's
 # row pass holds 9,920 bytes per row at the bench widths, so 2.6 GB for a
-# chunk of 262,144 rows.
+# chunk of 262,144 rows. The chunk is a multiple of the row pass's tile.
 _NERF_BWD_CHUNK = 262144
-# Blocks the weight-gradient pass aims for per SM, through its row splits.
-_DW_BLOCKS_PER_SM = 4
+_NERF_BWD_TILE = 128  # rows per block of csrc/fused_mlp_bwd.cu
 _DW_ALIGN = 64  # floats between job offsets in the flat dW buffer
+_DW_TILE_M = 128  # dW rows per block of weight_grad.cu
 
 
 def _nerf_plain_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
@@ -602,6 +616,11 @@ class _WeightGrads:
     self.jobs.append(dict(name=name, bias_name=bias_name, a=a, g=g, m=m, n=n,
                           out=out, bias_out=bias_out))
 
+  @property
+  def tile_n(self):
+    """The block tile's columns: every job's n, so each reads A once."""
+    return 256 if max(j['n'] for j in self.jobs) > 128 else 128
+
   def run(self, lib, rows_of, bias_rows_of, partial, flat, accumulate,
           device, stream):
     """One chunk: rows_of(job) rows, bias over bias_rows_of(job) rows."""
@@ -614,15 +633,26 @@ class _WeightGrads:
     int_array = (ctypes.c_int * len(ints))(*ints)
     splits = partial.numel() // self.size
     rc = lib.weight_grad(ctypes.addressof(ptrs), ctypes.addressof(int_array),
-                         len(self.jobs), splits, partial.data_ptr(),
-                         self.size, flat.data_ptr(), int(accumulate),
-                         device.index or 0, stream)
+                         len(self.jobs), self.tile_n, splits,
+                         partial.data_ptr(), self.size, flat.data_ptr(),
+                         int(accumulate), device.index or 0, stream)
     _check_launch(lib, rc, 'weight_grad')
 
-  def splits(self, device):
-    tiles = sum(-(-j['m'] // 64) * -(-j['n'] // 64) for j in self.jobs)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(64, -(-_DW_BLOCKS_PER_SM * sms // tiles)))
+  def splits(self, sms):
+    """Row splits that fill `sms` SMs about once with the jobs' tiles.
+
+    Each tile counts by the share of a full tile it covers; weight_grad.cu
+    fits one block of 256-column tiles per SM, or two of 128.
+    """
+    tn = self.tile_n
+    work = 0.0
+    for j in self.jobs:
+      for m0 in range(0, j['m'], _DW_TILE_M):
+        for n0 in range(0, j['n'], tn):
+          work += (min(_DW_TILE_M, j['m'] - m0) / _DW_TILE_M
+                   * min(tn, j['n'] - n0) / tn)
+    blocks_per_sm = 1 if tn == 256 else 2
+    return max(1, min(64, int(sms * blocks_per_sm / work)))
 
   def views(self, flat):
     out = {}
@@ -632,6 +662,10 @@ class _WeightGrads:
       if j['bias_name']:
         out[j['bias_name']] = flat[j['bias_out']:j['bias_out'] + j['n']]
     return out
+
+
+def _sm_count(device) -> int:
+  return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _workspace(device, shapes):
@@ -645,21 +679,21 @@ def _workspace(device, shapes):
   return views
 
 
-def _transposed(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-  return None if t is None else t.t().contiguous()
-
-
-def _launch_nerf_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
+def _nerf_bwd_passes(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
                      g_alpha, g_rgb, chunk=_NERF_BWD_CHUNK):
+  """The checks, outputs and workspace of one kernel backward.
+
+  Returns (passes, finish): one (row_pass, weight_pass) pair of callables
+  per chunk of rows, each launching its kernel on the current stream and
+  to be called in order; finish() gives (dx, drb, {name: dW}) after all.
+  """
   name = 'nerf_mlp_backward'
   _check_rows(x, name)
-  if (ops.width, ops.rgb_width) not in _NERF_WIDTHS:
-    raise ValueError(f'{name}: kernel built for (width, rgb width) in '
-                     f'{_NERF_WIDTHS}, got {(ops.width, ops.rgb_width)}')
+  check_nerf_shape(name, ops.width, ops.rgb_width, trunk_depth, x.shape[1])
+  if chunk % _NERF_BWD_TILE:
+    raise ValueError(f'{name}: chunk must be a multiple of {_NERF_BWD_TILE}')
   if ops.rgb_hidden is None:
     raise ValueError(f'{name}: needs an rgb hidden layer')
-  if not 1 <= trunk_depth <= _MAX_DEPTH:
-    raise ValueError(f'{name}: trunk depth must be in [1, {_MAX_DEPTH}]')
   n, c_in = x.shape
   width, rgb_width = ops.width, ops.rgb_width
   device = x.device
@@ -673,6 +707,8 @@ def _launch_nerf_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
   if rgb_row_bias is not None:
     rgb_row_bias = _check_row_bias(rgb_row_bias, x, rgb_width, name)
 
+  # The kernel reads every weight in its (in, out) layout, also where it
+  # multiplies by the transpose: no transposed copies.
   w = [_pad_rows(ops.trunk_w[0], _PE_PAD).contiguous()] + ops.trunk_w[1:]
   wx = [(_pad_rows(ops.trunk_wx[i], _PE_PAD).contiguous()
          if i in ops.trunk_wx else None) for i in range(_MAX_DEPTH)]
@@ -680,17 +716,13 @@ def _launch_nerf_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
   bot_w, bot_b = ops.bottleneck or (None, None)
   rh_w, rh_b = ops.rgb_hidden
   head = lambda t: _pad_cols(t, _HEAD_PAD).contiguous()
-  al_w, rl_w = head(ops.alpha_w), head(ops.rgb_w)
   weights = (w + pad + wx + ops.trunk_b + pad
-             + [_transposed(t) for t in w] + pad
-             + [_transposed(t) for t in wx]
-             + [bot_w, bot_b, _transposed(bot_w),
-                al_w, head(ops.alpha_b), _transposed(al_w),
-                rh_w, rh_b, _transposed(rh_w),
-                rl_w, head(ops.rgb_b), _transposed(rl_w)])
+             + [bot_w, bot_b, head(ops.alpha_w), rh_w, rh_b,
+                head(ops.rgb_w)])
   _check_operands([t for t in weights if t is not None], device, name)
 
-  rows_alloc = min(-(-n // 64) * 64, chunk)
+  # The row pass writes whole tiles of _NERF_BWD_TILE rows.
+  rows_alloc = min(-(-n // _NERF_BWD_TILE) * _NERF_BWD_TILE, chunk)
   has_bt = ops.bottleneck is not None
   depth = trunk_depth
   shapes = ([(rows_alloc, _PE_PAD)] + [(rows_alloc, width)] * depth
@@ -720,7 +752,7 @@ def _launch_nerf_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
   grads.add('alpha_logit/w', ws_bt if ops.alpha_from_bt else ws_h[-1], ws_ga,
             'alpha_logit/b')
   grads.add('rgb_logit/w', ws_y, ws_gr, 'rgb_logit/b')
-  partial = torch.empty(grads.splits(device) * grads.size,
+  partial = torch.empty(grads.splits(_sm_count(device)) * grads.size,
                         dtype=torch.float32, device=device)
   flat = torch.empty(grads.size, dtype=torch.float32, device=device)
 
@@ -738,24 +770,43 @@ def _launch_nerf_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
   skip_mask = sum(1 << i for i in ops.trunk_wx)
   lib = _build.load()
   stream = torch.cuda.current_stream(device).cuda_stream
-  for row0 in range(0, n, rows_alloc):
-    rows = min(rows_alloc, n - row0)
+
+  def row_pass(row0, rows):
     rc = lib.nerf_mlp_backward_rows(
         ctypes.addressof(ptrs), row0, rows, c_in, depth, skip_mask, flags,
         width, rgb_width, device.index or 0, stream)
     _check_launch(lib, rc, name)
+
+  def weight_pass(row0, rows):
     grads.run(lib, lambda j: rows, lambda j: rows, partial, flat, row0 > 0,
               device, stream)
-  nerf_mlp_backward.launches += 1
 
-  dws = grads.views(flat)
-  dws['trunk_0/w'] = dws['trunk_0/w'][:c_in]
-  for i in ops.trunk_wx:
-    dws[f'trunk_{i}/wx'] = dws[f'trunk_{i}/wx'][:c_in]
-  for key in ('alpha_logit', 'rgb_logit'):
-    dws[f'{key}/w'] = dws[f'{key}/w'][:, :_OUT_COLS]
-    dws[f'{key}/b'] = dws[f'{key}/b'][:_OUT_COLS]
-  return dx, drb, dws
+  def finish():
+    dws = grads.views(flat)
+    dws['trunk_0/w'] = dws['trunk_0/w'][:c_in]
+    for i in ops.trunk_wx:
+      dws[f'trunk_{i}/wx'] = dws[f'trunk_{i}/wx'][:c_in]
+    for key in ('alpha_logit', 'rgb_logit'):
+      dws[f'{key}/w'] = dws[f'{key}/w'][:, :_OUT_COLS]
+      dws[f'{key}/b'] = dws[f'{key}/b'][:_OUT_COLS]
+    return dx, drb, dws
+
+  chunks = [(row0, min(rows_alloc, n - row0))
+            for row0 in range(0, n, rows_alloc)]
+  passes = [(lambda c=c: row_pass(*c), lambda c=c: weight_pass(*c))
+            for c in chunks]
+  return passes, finish
+
+
+def _launch_nerf_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
+                     g_alpha, g_rgb, chunk=_NERF_BWD_CHUNK):
+  passes, finish = _nerf_bwd_passes(x, rgb_row_bias, ops, trunk_depth,
+                                    g_alpha, g_rgb, chunk)
+  for row_pass, weight_pass in passes:
+    row_pass()
+    weight_pass()
+  nerf_mlp_backward.launches += 1
+  return finish()
 
 
 def nerf_mlp_backward(x: torch.Tensor,

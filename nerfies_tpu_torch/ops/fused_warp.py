@@ -41,8 +41,7 @@ from nerfies_tpu_torch.ops.fused_mlp import (_HEAD_PAD, _MAX_DEPTH, _OUT_COLS,
                                              _PE_PAD, _bf16, _check_launch,
                                              _check_operands, _dot,
                                              _pad_cols, _pad_rows,
-                                             _pointer_array, _transposed,
-                                             _workspace)
+                                             _pointer_array, _workspace)
 
 _WIDTHS = (128,)
 _TANGENTS = (0, 3)
@@ -80,6 +79,10 @@ def pack(params: dict, c_in: int, f_embed: int, trunk_depth: int,
   ops['wh'] = _bf16(_pad_cols(head['kernel'], _OUT_COLS))
   ops['bh'] = _bf16(_pad_cols(head['bias'], _OUT_COLS))
   return ops
+
+
+def _transposed(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+  return None if t is None else t.t().contiguous()
 
 
 def _is_skip(i, skips):
@@ -316,7 +319,8 @@ def _launch_bwd(x, e, tangents, g_out, g_jouts, ops, trunk_depth, skips,
       grads.add(f'we{i}', ws_e, ws_gp[i])
   grads.add('wh', ws_h[-1], ws_gh, 'bh')
   chained.add('wh')
-  partial = torch.empty(grads.splits(device) * grads.size,
+  partial = torch.empty(grads.splits(fused_mlp._sm_count(device))
+                        * grads.size,
                         dtype=torch.float32, device=device)
   flat = torch.empty(grads.size, dtype=torch.float32, device=device)
 

@@ -11,6 +11,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import test_fused_train
 import torch_parity
 
 from nerfies_tpu import configs as jax_configs
@@ -154,3 +155,51 @@ def test_unported_options_raise():
   with pytest.raises(NotImplementedError):
     fast_render.render_rays(params, rays, _WARP_EXTRA, model,
                             keep_samples=(4, 4))
+
+
+# The warp encoding's kwargs. The serving warp encodes the points as the
+# warp field does (min_freq_log2, max_freq_log2, use_identity_map), so it
+# is held to the JAX model.apply warp; the JAX fast_render encodes with
+# num_freqs and alpha only (nerfies_tpu/fast_render.py:83-84), which
+# diverges there: use_identity_map=False misaligns its layer-0 split by the
+# 3 identity rows, and max_freq_log2 changes the frequencies.
+_WARP_KWARG_CASES = {
+    'no_identity_map': {'use_identity_map': False},
+    'max_freq_log2': {'max_freq_log2': 3.0},
+}
+
+
+@pytest.mark.parametrize('case', sorted(_WARP_KWARG_CASES))
+def test_serving_warp_honours_the_encoding_kwargs(case):
+  warp_kwargs = {'trunk_depth': 3, 'skips': (2,), **_WARP_KWARG_CASES[case]}
+  jmodel, jparams = test_fused_train._build(warp_kwargs=warp_kwargs)
+  # The model's init with a warp head at the scale of
+  # tests/test_torch_fused_warp.py's (the 1e-4 init would hide the warp).
+  rng = np.random.RandomState(4)
+  head = jparams['warp_field']['branches_wv']['logit']
+  head = {'kernel': np.float32(0.1) * rng.normal(
+              size=head['kernel'].shape).astype(np.float32),
+          'bias': np.full(head['bias'].shape, 0.01, np.float32)}
+  jparams = {**jparams, 'warp_field': {
+      **jparams['warp_field'], 'branches_wv': {'logit': head}}}
+  model = torch_parity.port_model('se3', warp_kwargs)
+  points = rng.uniform(-1, 1, (4, 6, 3)).astype(np.float32)
+  ids = rng.randint(0, 2, (4, 1)).astype(np.uint32)
+  want = np.asarray(jmodel.apply(
+      {'params': jparams}, jax.numpy.asarray(points), jax.numpy.asarray(ids),
+      _WARP_EXTRA, False, False, method=jmodel.apply_warp)['warped_points'])
+  got = fast_render._apply_warp_fused(
+      interop.params_from_jax(jparams, device='cpu'), model,
+      torch.from_numpy(points), torch.from_numpy(ids.astype(np.int64)),
+      _WARP_EXTRA)
+  # The warp tolerance of tests/test_fused_warp.py.
+  np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=1e-2)
+
+  try:
+    jax_got = np.asarray(jax_fast_render._apply_warp_fused(
+        jparams, jmodel, jax.numpy.asarray(points), jax.numpy.asarray(ids),
+        _WARP_EXTRA, interpret=True))
+  except TypeError:  # the embedding rows no longer match the split
+    assert case == 'no_identity_map'
+  else:
+    assert not np.allclose(jax_got, want, atol=2e-3, rtol=1e-2), case

@@ -40,17 +40,31 @@ def _jax_nerf_params(alpha_dims, rgb_dims, depth=4, width=64, rgb_width=32,
   return jax.tree.map(lambda p: 3.0 * p + 0.1, params)
 
 
+# (trunk width, rgb branch width) of the port's CUDA kernels other than
+# the bench model's (256, 128): ops/fused_mlp.py _NERF_WIDTHS.
+_KERNEL_WIDTHS = [(128, 128), (32, 128)]
+
+
 @pytest.mark.parametrize('alpha_dims,rgb_dims', _COND_COMBOS)
 def test_nerf_mlp_forward_matches_pallas(alpha_dims, rgb_dims):
+  _check_forward(alpha_dims, rgb_dims, width=64, rgb_width=32)
+
+
+@pytest.mark.parametrize('width,rgb_width', _KERNEL_WIDTHS)
+def test_nerf_mlp_forward_matches_pallas_at_kernel_widths(width, rgb_width):
+  _check_forward(5, 7, width=width, rgb_width=rgb_width)
+
+
+def _check_forward(alpha_dims, rgb_dims, width, rgb_width):
   n, c, depth, skips = 67, 27, 4, (2,)  # ragged against any row tile
-  params = _jax_nerf_params(alpha_dims, rgb_dims, depth=depth, skips=skips,
-                            c=c)
+  params = _jax_nerf_params(alpha_dims, rgb_dims, depth=depth, width=width,
+                            rgb_width=rgb_width, skips=skips, c=c)
   rng = np.random.RandomState(0)
   x = rng.normal(size=(n, c)).astype(np.float32)
   rgb_row_bias = None
   if rgb_dims:
     rgb_row_bias = np.array(jnp.asarray(
-        rng.normal(size=(n, 32)), jnp.bfloat16).astype(jnp.float32))
+        rng.normal(size=(n, rgb_width)), jnp.bfloat16).astype(jnp.float32))
   want_alpha, want_rgb = jax_fused_mlp.nerf_mlp_forward(
       jnp.asarray(x), None if rgb_row_bias is None
       else jnp.asarray(rgb_row_bias), params, trunk_depth=depth,
@@ -143,14 +157,25 @@ def test_no_kernel_for_other_devices():
 def test_nerf_mlp_train_matches_pallas_vjp(alpha_dims, rgb_dims):
   """Forward at 0.05; dx, drb and every dW leaf by cosine and norm ratio
   against the Pallas kernels' custom VJP (interpret mode)."""
+  _check_vjp(alpha_dims, rgb_dims, width=64, rgb_width=32)
+
+
+@pytest.mark.parametrize('width,rgb_width', _KERNEL_WIDTHS)
+def test_nerf_mlp_train_matches_pallas_vjp_at_kernel_widths(width,
+                                                            rgb_width):
+  _check_vjp(5, 7, width=width, rgb_width=rgb_width)
+
+
+def _check_vjp(alpha_dims, rgb_dims, width, rgb_width):
   n, c, depth, skips = 67, 27, 4, (2,)
-  params = _jax_nerf_params(alpha_dims, rgb_dims, depth=depth, skips=skips,
-                            c=c)
+  params = _jax_nerf_params(alpha_dims, rgb_dims, depth=depth, width=width,
+                            rgb_width=rgb_width, skips=skips, c=c)
   rng = np.random.RandomState(1)
   x = np.array(jnp.asarray(rng.normal(size=(n, c)), jnp.bfloat16).astype(
       jnp.float32))
-  rb = (np.array(jnp.asarray(rng.normal(size=(n, 32)), jnp.bfloat16).astype(
-      jnp.float32)) if rgb_dims else None)
+  rb = (np.array(jnp.asarray(rng.normal(size=(n, rgb_width)),
+                             jnp.bfloat16).astype(jnp.float32))
+        if rgb_dims else None)
   g_alpha = rng.normal(size=(n, 8)).astype(np.float32)
   g_rgb = rng.normal(size=(n, 8)).astype(np.float32)
 
@@ -201,3 +226,24 @@ def test_backward_wrapper_equals_its_plain_version_on_cpu():
                               fused_mlp.flatten_tree(want[2])):
     assert pa == pb and torch.equal(a, b)
     assert a.shape == fused_mlp.tree_leaf(params, pa).shape
+
+
+@pytest.mark.parametrize('width,rgb_width',
+                         [(256, 128), (128, 128), (32, 128)])
+def test_nerf_shape_check_accepts_the_kernel_widths(width, rgb_width):
+  fused_mlp.check_nerf_shape('f', width, rgb_width, trunk_depth=8, c_in=63)
+
+
+@pytest.mark.parametrize('width,rgb_width,depth,c_in', [
+    (64, 32, 8, 63), (256, 256, 8, 63), (32, 64, 8, 63), (256, 128, 0, 63),
+    (256, 128, 17, 63), (256, 128, 8, 65), (256, 128, 8, 0)])
+def test_nerf_shape_check_raises_elsewhere(width, rgb_width, depth, c_in):
+  with pytest.raises(ValueError, match='nerf_mlp_backward'):
+    fused_mlp.check_nerf_shape('nerf_mlp_backward', width, rgb_width,
+                               trunk_depth=depth, c_in=c_in)
+
+
+def test_nerf_shape_check_names_the_supported_widths():
+  with pytest.raises(ValueError, match=r'\(256, 128\), \(128, 128\), '
+                                       r'\(32, 128\)'):
+    fused_mlp.check_nerf_shape('f', 64, 32, trunk_depth=4, c_in=27)

@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain versions, on a card.
 
-At the bench model's widths: the NeRF MLP 8 x 256 (skip 4, rgb branch
-128), the warp trunk 6 x 128 (skip 4) with 8 embedding features.
+The NeRF MLP 8 deep (skip 4) at each (trunk, rgb branch) width the
+kernels are built for: the bench model's (256, 128), configs/
+test_vrig.gin's (128, 128) and the verification model's (32, 128). The
+warp trunk 6 x 128 (skip 4) with 8 embedding features, the only warp
+width of the configs.
 
 Marked `cuda`: they skip without a card, since a CUDA kernel has no CPU
 mode. This file imports no JAX, so it also runs on a machine without it:
@@ -29,19 +32,29 @@ def cuda_device():
   return torch.device('cuda')
 
 
-def _bench_width_nerf(generator):
-  return modules.nerf_mlp(point_dims=51, rgb_condition_dims=29,
-                          generator=generator)
+# (trunk width, rgb branch width): ops/fused_mlp.py _NERF_WIDTHS.
+NERF_WIDTHS = [(256, 128), (128, 128), (32, 128)]
+
+
+def _nerf(generator, widths=(256, 128), alpha_dims=0):
+  """A NerfMLP with an rgb condition (and an alpha one if alpha_dims)."""
+  width, rgb_width = widths
+  return modules.nerf_mlp(point_dims=51, alpha_condition_dims=alpha_dims,
+                          rgb_condition_dims=29, trunk_width=width,
+                          rgb_branch_width=rgb_width, generator=generator)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('widths', NERF_WIDTHS)
 @pytest.mark.parametrize('n', [1, 64, 1000, 4099])
 @pytest.mark.parametrize('with_bias', [False, True])
-def test_nerf_kernel_matches_plain_on_card(cuda_device, n, with_bias):
+def test_nerf_kernel_matches_plain_on_card(cuda_device, n, with_bias,
+                                           widths):
   g = torch.Generator().manual_seed(n)
-  params = _tree_to(_bench_width_nerf(g), cuda_device)
+  params = _tree_to(_nerf(g, widths), cuda_device)
   x = torch.randn(n, 51, generator=g).to(cuda_device)
-  rb = torch.randn(n, 128, generator=g).to(cuda_device) if with_bias else None
+  rb = (torch.randn(n, widths[1], generator=g).to(cuda_device)
+        if with_bias else None)
   before = fused_mlp.nerf_mlp_forward.launches
   got = fused_mlp.nerf_mlp_forward(x, rb, params, trunk_depth=8, skips=(4,))
   torch.cuda.synchronize()
@@ -126,14 +139,18 @@ def _assert_dw_close(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('widths', NERF_WIDTHS)
+@pytest.mark.parametrize('alpha_dims', [0, 8])
 @pytest.mark.parametrize('n', [1, 64, 1000, 4099])
 @pytest.mark.parametrize('with_bias', [False, True])
 def test_nerf_backward_kernel_matches_plain_on_card(cuda_device, n,
-                                                    with_bias):
+                                                    with_bias, alpha_dims,
+                                                    widths):
   g = torch.Generator().manual_seed(n)
-  params = _tree_to(_bench_width_nerf(g), cuda_device)
+  params = _tree_to(_nerf(g, widths, alpha_dims), cuda_device)
   x = torch.randn(n, 51, generator=g).to(cuda_device)
-  rb = torch.randn(n, 128, generator=g).to(cuda_device) if with_bias else None
+  rb = (torch.randn(n, widths[1], generator=g).to(cuda_device)
+        if with_bias else None)
   ga = torch.randn(n, 8, generator=g).to(cuda_device)
   gr = torch.randn(n, 8, generator=g).to(cuda_device)
   before = fused_mlp.nerf_mlp_backward.launches
@@ -151,12 +168,13 @@ def test_nerf_backward_kernel_matches_plain_on_card(cuda_device, n,
 
 
 @pytest.mark.cuda
-def test_nerf_backward_chunks_are_deterministic_on_card(cuda_device):
+@pytest.mark.parametrize('widths', NERF_WIDTHS)
+def test_nerf_backward_chunks_are_deterministic_on_card(cuda_device, widths):
   g = torch.Generator().manual_seed(7)
-  params = _tree_to(_bench_width_nerf(g), cuda_device)
+  params = _tree_to(_nerf(g, widths), cuda_device)
   n = 5000
   x = torch.randn(n, 51, generator=g).to(cuda_device)
-  rb = torch.randn(n, 128, generator=g).to(cuda_device)
+  rb = torch.randn(n, widths[1], generator=g).to(cuda_device)
   ga = torch.randn(n, 8, generator=g).to(cuda_device)
   gr = torch.randn(n, 8, generator=g).to(cuda_device)
   ops = fused_mlp.pack_nerf_mlp(params, 51, 8, (4,))
