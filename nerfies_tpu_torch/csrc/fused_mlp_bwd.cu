@@ -16,41 +16,46 @@
 //
 // Bound on an H100 SXM: 3 x 583,808 multiply-adds per row at the bench
 // widths (the recompute, the input cotangents and the dW, 2/3 of them
-// here), so the tensor rate; the workspace adds 9,920 bytes per row
-// written here and read by weight_grad.cu. What held the first version of
-// this pass to ~43 TFLOP/s was latency, not the tensor instruction: each
-// 32-row weight slice was copied synchronously between two barriers, the
-// wmma fragments came straight from shared memory, and ptxas spilled.
+// here), 1.84 TFLOP at 786,432 rows, and 9,920 bytes per row of workspace
+// written here (7.8 GB) and read by weight_grad.cu: 2.3 ms of device
+// memory against 1.9 ms of tensor rate, so bytes by a little. In practice
+// such a pass is held back by latency and synchronisation long before
+// either: weight slices that land between barriers instead of ahead of
+// them, epilogues that wait on global memory, register spills.
 //
-// Design. A block of 8 warps owns RBM = 128 rows, so each weight byte
-// streamed from L2 serves 128 rows (256 FLOP per byte, above what L2 feeds
-// at the card's mma.sync rate). Warp w computes rows 64 (w % 2) .. + 64 and
-// a quarter of the columns of every product, as mma.sync.m16n8k16 bf16
-// tiles with f32 accumulators in registers (128 at width 256; no spills
-// at one block per SM). Weight slices of KS = 32 rows flow through a ring
-// of RSTAGES cp.async stages: the next slices land while the current one
-// multiplies, with one barrier per slice. Weights stay in Flax's (in, out)
-// layout: a product with W stages row slices and reads B fragments with
-// ldmatrix.trans; a product with W^T (the cotangents) stages column slices
-// and reads them with plain ldmatrix, so no transposed copy exists.
+// Design. A block of 16 warps owns RBM = 128 rows, so each weight byte
+// streamed from L2 serves 128 rows. Warp w computes WARP_ROWS = 32 rows
+// and a quarter of the columns of every product, as mma.sync.m16n8k16
+// bf16 tiles with f32 accumulators in registers (64 at width 256), fed by
+// ldmatrix. Weight slices of KS rows (32 at width 256, 64 below) flow
+// through a ring of 3 cp.async stages, one barrier per slice. A product
+// sums up to three terms (A_i @ B_i, as the skip layer and the head
+// cotangents need) in one slice stream, and its first slices are issued
+// before the previous product's epilogue, so they land while it runs.
+// Weights stay in Flax's (in, out) layout: a product with W stages row
+// slices and reads B fragments with ldmatrix.trans; a product with W^T
+// (the cotangents) stages column slices and reads them with plain
+// ldmatrix, so no transposed copy exists.
 //
-// Shared memory (227 KB at width 256): the encoding tile, two activation
-// buffers b0 / b1 of max(W, RW) columns, the bf16 head cotangents and the
-// ring. Each product's accumulators are complete before its epilogue, so
-// epilogues write in place after the product's closing barrier: the trunk
-// recompute runs in b0; the backward keeps the running cotangent in b1,
-// while b0 receives, through the same cp.async ring, the activation tile
-// whose ReLU mask the next epilogue needs. Each finished tile is copied to
-// the workspace with 16-byte stores.
+// Shared memory (227 KB at width 256, with the layers' biases where they
+// fit): the encoding tile, two activation buffers b0 / b1 of max(W, RW)
+// columns, the bf16 head cotangents and the ring. Each product's
+// accumulators are complete before its epilogue, so epilogues write in
+// place after the product's closing barrier: the trunk recompute runs in
+// b0; the backward keeps the running cotangent in b1, while b0 receives,
+// beside the weight slices, the activation tile whose ReLU mask the next
+// epilogue needs. Each finished tile goes to the workspace as bulk copies
+// (one per row) that the copy engine runs while the block goes on.
 
 #include "mma_pipe.cuh"
 
 namespace {
 
 constexpr int RBM = 128;        // rows per block
-constexpr int RTHREADS = 256;   // 8 warps: 2 row halves x 4 column quarters
-constexpr int KS = 32;          // weight rows (k) per ring stage
-constexpr int RSTAGES = 3;
+constexpr int WARP_ROWS = 32;   // rows of a product per warp
+constexpr int MT = WARP_ROWS / 16;          // m16 tiles per warp
+constexpr int ROW_GROUPS = RBM / WARP_ROWS;
+constexpr int RTHREADS = ROW_GROUPS * 4 * 32;  // x 4 column quarters
 constexpr int RPAD = 8;         // shared row padding (bf16 elements)
 constexpr int CPAD = 64;        // input columns, zero-padded
 constexpr int LDX = CPAD + RPAD;
@@ -61,25 +66,38 @@ constexpr int MAXD = 16;        // most trunk layers
 
 enum { HAS_BOTTLENECK = 1, ALPHA_FROM_BT = 2, RGB_FROM_BT = 4 };
 
-// The accumulators of one warp for an RBM x N product: 4 m16 tiles by NTW
+// The accumulators of one warp for an RBM x N product: MT m16 tiles by NTW
 // n8 tiles, the warp's column quarter (for N = 16, warps of quarters 2 and
 // 3 hold none).
 template <int N>
 struct Frag {
   static constexpr int NT = N / 8;
   static constexpr int NTW = NT >= 4 ? NT / 4 : 1;
-  float c[4][NTW][4];
+  float c[MT][NTW][4];
 
   __device__ void zero() {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < NTW; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) c[i][j][e] = 0.0f;
   }
-  __device__ static int row0() { return ((threadIdx.x >> 5) & 1) * 64; }
-  __device__ static int col0() { return (threadIdx.x >> 6) * NTW * 8; }
+  __device__ static int row0() {
+    return ((threadIdx.x >> 5) % ROW_GROUPS) * WARP_ROWS;
+  }
+  __device__ static int col0() {
+    return ((threadIdx.x >> 5) / ROW_GROUPS) * NTW * 8;
+  }
+};
+
+// The weight ring: STAGES stages of STAGE bf16 elements, each holding KS
+// rows (k) of a weight slice.
+template <int KS_, int STAGES_, int STAGE_>
+struct Pipe {
+  static constexpr int KS = KS_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int STAGE = STAGE_;
 };
 
 // A tile that a product copies into shared memory beside its weight
@@ -92,70 +110,129 @@ struct Side {
   int cols;
 };
 
-// acc += A @ B over K (a multiple of 16), with A[RBM x K] in shared memory
-// (row stride lda) and B = W for a (K x N) row-major W, or B = W^T for an
-// (N x K) row-major W when TRANS. Every thread of the block calls it. It
-// ends with a barrier, after which the ring, A and the side copy's tile
-// may be overwritten or read by any thread.
-template <int N, bool TRANS, int STAGE>
-__device__ void product(Frag<N>& acc, const bf16* a_s, int lda, int K,
-                        const bf16* __restrict__ w, bf16* ring,
-                        const Side& side = Side{nullptr, 0, nullptr, 0, 0}) {
-  constexpr int NTW = Frag<N>::NTW;
-  constexpr int LDW = TRANS ? KS + RPAD : N + RPAD;  // staged row stride
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
-  const int steps = (K + KS - 1) / KS;
-  const int side_vecs = side.src != nullptr ? RBM * (side.cols / 8) : 0;
-  const int side_step = (side_vecs + steps - 1) / steps;
+// One term of a product: A[RBM x k] in shared memory (row stride lda)
+// times k rows of B taken from w. A product sums its terms in one set of
+// accumulators, their weight slices one stream; k = 0 leaves a term out.
+struct Seg {
+  const bf16* a;
+  int lda;
+  int k;            // a multiple of 16, or 0
+  const bf16* w;
+};
 
-  auto load = [&](int t, int stage) {
-    bf16* ws = ring + stage * STAGE;
-    const int k0 = t * KS, kk = min(KS, K - k0);
-    if constexpr (!TRANS) {
-      // Rows k0 .. k0 + kk of W, stored (k, n).
-      for (int v = tid; v < kk * (N / 8); v += RTHREADS) {
-        const int r = v / (N / 8), c = (v % (N / 8)) * 8;
-        cp_async16(ws + r * LDW + c, w + (size_t)(k0 + r) * N + c, true);
-      }
-    } else {
-      // Columns k0 .. k0 + kk of every row of W, stored (n, k).
-      const int vpr = kk / 8;
-      for (int v = tid; v < N * vpr; v += RTHREADS) {
-        const int r = v / vpr, c = (v % vpr) * 8;
-        cp_async16(ws + r * LDW + c, w + (size_t)r * K + k0 + c, true);
-      }
-    }
-    const int v_end = min(side_vecs, (t + 1) * side_step);
-    const int vpr = side.cols / 8;
-    for (int v = t * side_step + tid; v < v_end; v += RTHREADS) {
-      const int r = v / vpr, c = (v % vpr) * 8;
-      cp_async16(side.dst + r * side.dst_ld + c,
-                 side.src + (size_t)r * side.src_ld + c, true);
-    }
-  };
+// The weight slice that step t of a product streams.
+struct Slice {
+  const bf16* a;    // A at the slice's first column
+  int lda;
+  const bf16* w;
+  int k, k0, kk;    // the term's depth, the slice's offset and depth
+};
 
+template <class P, int NSEG>
+__device__ __forceinline__ int slice_count(const Seg (&s)[NSEG]) {
+  int n = 0;
 #pragma unroll
-  for (int s = 0; s < RSTAGES - 1; ++s) {
-    if (s < steps) load(s, s);
+  for (int i = 0; i < NSEG; ++i) n += (s[i].k + P::KS - 1) / P::KS;
+  return n;
+}
+
+template <class P, int NSEG>
+__device__ __forceinline__ Slice slice_at(const Seg (&s)[NSEG], int t) {
+  Slice r = {nullptr, 0, nullptr, 0, 0, 0};
+  int first = 0;
+#pragma unroll
+  for (int i = 0; i < NSEG; ++i) {
+    const int n = (s[i].k + P::KS - 1) / P::KS;
+    if (t >= first && t < first + n) {
+      r.k0 = (t - first) * P::KS;
+      r.kk = min(P::KS, s[i].k - r.k0);
+      r.a = s[i].a + r.k0;
+      r.lda = s[i].lda;
+      r.w = s[i].w;
+      r.k = s[i].k;
+    }
+    first += n;
+  }
+  return r;
+}
+
+// Stages slice r of B: for B = W (W: k x N) its rows k0 .. k0 + kk, stored
+// (k, n); for B = W^T (TRANS, W: N x k) columns k0 .. k0 + kk of every row
+// of W, stored (n, k).
+template <int N, bool TRANS, class P>
+__device__ __forceinline__ void load_slice(const Slice& r, bf16* stage) {
+  constexpr int LDW = TRANS ? P::KS + RPAD : N + RPAD;
+  const int tid = threadIdx.x;
+  if constexpr (!TRANS) {
+    for (int v = tid; v < r.kk * (N / 8); v += RTHREADS) {
+      const int i = v / (N / 8), c = (v % (N / 8)) * 8;
+      cp_async16(stage + i * LDW + c, r.w + (size_t)(r.k0 + i) * N + c, true);
+    }
+  } else {
+    const int vpr = r.kk / 8;
+    for (int v = tid; v < N * vpr; v += RTHREADS) {
+      const int i = v / vpr, c = (v % vpr) * 8;
+      cp_async16(stage + i * LDW + c, r.w + (size_t)i * r.k + r.k0 + c, true);
+    }
+  }
+}
+
+// Issues a product's first STAGES - 1 weight slices. Every thread calls it,
+// after the previous product's closing barrier: the ring is free then, and
+// the slices land while the previous epilogue runs.
+template <int N, bool TRANS, class P, int NSEG>
+__device__ void begin(const Seg (&s)[NSEG], bf16* ring) {
+  const int steps = slice_count<P>(s);
+#pragma unroll
+  for (int i = 0; i < P::STAGES - 1; ++i) {
+    if (i < steps)
+      load_slice<N, TRANS, P>(slice_at<P>(s, i), ring + i * P::STAGE);
     cp_async_commit();
   }
+}
+
+// acc += sum over terms of A @ B, with B = W or, when TRANS, W^T: the rest
+// of a product whose `begin` ran. Every thread calls it. Slices flow
+// through a ring of P::STAGES cp.async stages, one barrier per slice; the
+// side copy, if any, is spread over the slices. It ends with a barrier,
+// after which the ring, every A and the side copy's tile may be written or
+// read by any thread, and this block's bulk stores are complete.
+template <int N, bool TRANS, class P, int NSEG>
+__device__ void run(Frag<N>& acc, const Seg (&s)[NSEG], bf16* ring,
+                    const Side& side = Side{}) {
+  constexpr int NTW = Frag<N>::NTW;
+  constexpr int LDW = TRANS ? P::KS + RPAD : N + RPAD;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
+  const int steps = slice_count<P>(s);
+  const int side_vecs = side.src != nullptr ? RBM * (side.cols / 8) : 0;
+  const int side_step = steps > 0 ? (side_vecs + steps - 1) / steps : 0;
+  const int side_vpr = side.cols / 8;
+
   for (int t = 0; t < steps; ++t) {
-    cp_async_wait<RSTAGES - 2>();
+    cp_async_wait<P::STAGES - 2>();
     __syncthreads();  // slice t has landed; slice t - 1 is consumed
-    if (t + RSTAGES - 1 < steps)
-      load(t + RSTAGES - 1, (t + RSTAGES - 1) % RSTAGES);
+    if (t + P::STAGES - 1 < steps)
+      load_slice<N, TRANS, P>(slice_at<P>(s, t + P::STAGES - 1),
+                              ring + ((t + P::STAGES - 1) % P::STAGES) *
+                                         P::STAGE);
+    const int v_end = min(side_vecs, (t + 1) * side_step);
+    for (int v = t * side_step + tid; v < v_end; v += RTHREADS) {
+      const int i = v / side_vpr, c = (v % side_vpr) * 8;
+      cp_async16(side.dst + i * side.dst_ld + c,
+                 side.src + (size_t)i * side.src_ld + c, true);
+    }
     cp_async_commit();
     if (nb0 >= N) continue;
-    const bf16* ws = ring + (t % RSTAGES) * STAGE;
-    const int k0 = t * KS, kk = min(KS, K - k0);
+    const Slice r = slice_at<P>(s, t);
+    const bf16* ws = ring + (t % P::STAGES) * P::STAGE;
 #pragma unroll
-    for (int ks = 0; ks < KS; ks += 16) {
-      if (ks >= kk) break;
-      uint32_t af[4][4];
+    for (int ks = 0; ks < P::KS; ks += 16) {
+      if (ks >= r.kk) break;
+      uint32_t af[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4(af[mt], a_s + (wm + mt * 16 + (lane & 15)) * lda + k0 + ks +
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(af[mt], r.a + (wm + mt * 16 + (lane & 15)) * r.lda + ks +
                             ((lane >> 4) << 3));
       if constexpr (NTW >= 2) {
 #pragma unroll
@@ -170,7 +247,7 @@ __device__ void product(Frag<N>& acc, const bf16* a_s, int lda, int K,
             ldsm_x4(b, ws + (nb + (lane & 7) + ((lane >> 4) << 3)) * LDW +
                            ks + (((lane >> 3) & 1) << 3));
 #pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
+          for (int mt = 0; mt < MT; ++mt) {
             mma16816(acc.c[mt][2 * jp], af[mt], b[0], b[1]);
             mma16816(acc.c[mt][2 * jp + 1], af[mt], b[2], b[3]);
           }
@@ -183,14 +260,21 @@ __device__ void product(Frag<N>& acc, const bf16* a_s, int lda, int K,
         else
           ldsm_x2(b, ws + (nb0 + (l16 & 7)) * LDW + ks + ((l16 >> 3) << 3));
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
           mma16816(acc.c[mt][0], af[mt], b[0], b[1]);
       }
     }
   }
   cp_async_wait<0>();
+  bulk_wait();
+  fence_async_all();
   __syncthreads();
 }
+
+// The epilogues below read what they need from global memory into
+// registers before they use any of it, so that each pays one load latency:
+// all warps of the block reach an epilogue together, and nothing else
+// would hide it.
 
 // out (shared, row stride ldo) = bf16(act(acc + bias + row_bias)), with
 // row_bias (global, the block's first row, row stride N, or null) added on
@@ -199,66 +283,85 @@ template <int N>
 __device__ void epi_act(const Frag<N>& acc, const bf16* __restrict__ bias,
                         const bf16* __restrict__ row_bias, int rows_valid,
                         bool relu, bf16* out, int ldo) {
+  constexpr int NTW = Frag<N>::NTW;
   const int lane = threadIdx.x & 31;
   const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
   if (nb0 >= N) return;
+  const int c0 = nb0 + 2 * (lane & 3);
+  float2 b[NTW];
 #pragma unroll
-  for (int j = 0; j < Frag<N>::NTW; ++j) {
-    const int c = nb0 + j * 8 + 2 * (lane & 3);
-    const float b0 = __bfloat162float(bias[c]);
-    const float b1 = __bfloat162float(bias[c + 1]);
+  for (int j = 0; j < NTW; ++j)
+    b[j] = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(bias + c0 + j * 8));
+  float2 rb[MT][2][NTW];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
         const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
-        float v0 = acc.c[mt][j][2 * h] + b0;
-        float v1 = acc.c[mt][j][2 * h + 1] + b1;
-        if (row_bias != nullptr && r < rows_valid) {
-          const __nv_bfloat162 rb = *reinterpret_cast<const __nv_bfloat162*>(
-              row_bias + (size_t)r * N + c);
-          v0 += __low2float(rb);
-          v1 += __high2float(rb);
-        }
+        rb[mt][h][j] = row_bias != nullptr && r < rows_valid
+                           ? __bfloat1622float2(
+                                 *reinterpret_cast<const __nv_bfloat162*>(
+                                     row_bias + (size_t)r * N + c0 + j * 8))
+                           : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
+        float v0 = acc.c[mt][j][2 * h] + b[j].x + rb[mt][h][j].x;
+        float v1 = acc.c[mt][j][2 * h + 1] + b[j].y + rb[mt][h][j].y;
         if (relu) {
           v0 = fmaxf(v0, 0.0f);
           v1 = fmaxf(v1, 0.0f);
         }
-        *reinterpret_cast<__nv_bfloat162*>(out + r * ldo + c) =
+        *reinterpret_cast<__nv_bfloat162*>(out + r * ldo + c0 + j * 8) =
             __floats2bfloat162_rn(v0, v1);
       }
-  }
 }
 
 // A cotangent product rounded to bf16, zeroed where mask <= 0 (mask: the
 // layer's bf16 activation, the block's first row, row stride ldm, in
 // shared or global memory, or null), to shared memory (out, row stride
 // ldo) and as f32 to f32_out (global, the block's first row, row stride
-// N, valid rows only, or null).
+// N, valid rows only, or null). The mask is read a 16-row tile at a time.
 template <int N>
 __device__ void epi_grad(const Frag<N>& acc, const bf16* mask, int ldm,
                          bf16* out, int ldo, float* __restrict__ f32_out,
                          int rows_valid) {
+  constexpr int NTW = Frag<N>::NTW;
   const int lane = threadIdx.x & 31;
   const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
   if (nb0 >= N) return;
+  const int c0 = nb0 + 2 * (lane & 3);
   const bf16 zero = __float2bfloat16(0.0f);
 #pragma unroll
-  for (int j = 0; j < Frag<N>::NTW; ++j) {
-    const int c = nb0 + j * 8 + 2 * (lane & 3);
+  for (int mt = 0; mt < MT; ++mt) {
+    __nv_bfloat162 m[2][NTW];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int j = 0; j < NTW; ++j) {
         const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
+        m[h][j] = mask != nullptr ? *reinterpret_cast<const __nv_bfloat162*>(
+                                        mask + (size_t)r * ldm + c0 + j * 8)
+                                  : __floats2bfloat162_rn(1.0f, 1.0f);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
+        const int c = c0 + j * 8;
         __nv_bfloat162 v = __floats2bfloat162_rn(acc.c[mt][j][2 * h],
                                                  acc.c[mt][j][2 * h + 1]);
-        if (mask != nullptr) {
-          const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162*>(
-              mask + (size_t)r * ldm + c);
-          if (!(__low2float(m) > 0.0f)) v.x = zero;
-          if (!(__high2float(m) > 0.0f)) v.y = zero;
-        }
+        if (!(__low2float(m[h][j]) > 0.0f)) v.x = zero;
+        if (!(__high2float(m[h][j]) > 0.0f)) v.y = zero;
         *reinterpret_cast<__nv_bfloat162*>(out + r * ldo + c) = v;
         if (f32_out != nullptr && r < rows_valid)
           *reinterpret_cast<float2*>(f32_out + (size_t)r * N + c) =
@@ -273,21 +376,33 @@ __device__ void epi_grad(const Frag<N>& acc, const bf16* mask, int ldm,
 template <int N>
 __device__ void epi_f32(const Frag<N>& acc, float* __restrict__ out, int ld,
                         int ncols, int rows_valid, bool add) {
+  constexpr int NTW = Frag<N>::NTW;
   const int lane = threadIdx.x & 31;
   const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
   if (nb0 >= N) return;
+  float prev[NTW][MT][4];
 #pragma unroll
-  for (int j = 0; j < Frag<N>::NTW; ++j)
+  for (int j = 0; j < NTW; ++j)
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = wm + mt * 16 + frag_row(lane, e);
         const int c = nb0 + j * 8 + frag_col(lane, e);
-        if (c < ncols && r < rows_valid) {
-          float* p = out + (size_t)r * ld + c;
-          *p = (add ? *p : 0.0f) + acc.c[mt][j][e];
-        }
+        prev[j][mt][e] = add && c < ncols && r < rows_valid
+                             ? out[(size_t)r * ld + c]
+                             : 0.0f;
+      }
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wm + mt * 16 + frag_row(lane, e);
+        const int c = nb0 + j * 8 + frag_col(lane, e);
+        if (c < ncols && r < rows_valid)
+          out[(size_t)r * ld + c] = prev[j][mt][e] + acc.c[mt][j][e];
       }
 }
 
@@ -297,22 +412,33 @@ __device__ void epi_f32(const Frag<N>& acc, float* __restrict__ out, int ld,
 template <int COLS>
 __device__ void load_tile(const float* __restrict__ src, int c_src,
                           int rows_valid, bf16* dst, int ld) {
-  for (int e = threadIdx.x; e < RBM * COLS; e += RTHREADS) {
+  constexpr int PER_THREAD = RBM * COLS / RTHREADS;
+  float v[PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < PER_THREAD; ++i) {
+    const int e = threadIdx.x + i * RTHREADS;
     const int r = e / COLS, c = e % COLS;
-    const float v =
-        r < rows_valid && c < c_src ? src[(size_t)r * c_src + c] : 0.0f;
-    dst[r * ld + c] = __float2bfloat16(v);
+    v[i] = r < rows_valid && c < c_src ? src[(size_t)r * c_src + c] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < PER_THREAD; ++i) {
+    const int e = threadIdx.x + i * RTHREADS;
+    dst[(e / COLS) * ld + e % COLS] = __float2bfloat16(v[i]);
   }
 }
 
 // The block's RBM x COLS bf16 tile from shared memory (row stride lds) to
-// the workspace (row stride COLS), in 16-byte vectors.
+// the workspace (row stride COLS), as one bulk copy per row that the copy
+// engine runs while the block goes on. Every thread calls it after the
+// barrier that follows the tile's writes, each having fenced its own
+// writes (fence_async); `run` waits for the copies before the tile can
+// change again.
 template <int COLS>
 __device__ void store_tile(const bf16* src, int lds, bf16* __restrict__ dst) {
-  for (int v = threadIdx.x; v < RBM * (COLS / 8); v += RTHREADS) {
-    const int r = v / (COLS / 8), c = (v % (COLS / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * COLS + c) =
-        *reinterpret_cast<const uint4*>(src + r * lds + c);
+  if (threadIdx.x < RBM) {
+    bulk_store(dst + (size_t)threadIdx.x * COLS, src + threadIdx.x * lds,
+               COLS * sizeof(bf16));
+    bulk_commit();
   }
 }
 
@@ -344,6 +470,7 @@ struct NerfBwdArgs {
   bf16* ws_ga;             // (R, HEAD)
   bf16* ws_gr;             // (R, HEAD)
   int row0, rows, c_in, depth, skip_mask, flags;
+  int bias_in_smem;        // the biases fit beside the tiles (see below)
 };
 
 // Widest product: the activation buffers' columns and the ring's size.
@@ -354,25 +481,31 @@ __host__ __device__ constexpr int bwd_cols() {
 
 // A ring stage holds KS rows of a (K x L) W or L rows of KS columns of an
 // (L x K) one.
-template <int L>
+template <int L, int KS>
 __host__ __device__ constexpr int ring_stage() {
   return KS * (L + RPAD) > L * (KS + RPAD) ? KS * (L + RPAD)
                                            : L * (KS + RPAD);
 }
 
-template <int W, int RW>
+template <int W, int RW, int KS, int STAGES>
 constexpr size_t bwd_smem_bytes() {
   constexpr int L = bwd_cols<W, RW>();
   return sizeof(bf16) * (RBM * LDX + 2 * RBM * (L + RPAD) + 2 * RBM * LDG +
-                         RSTAGES * ring_stage<L>());
+                         STAGES * ring_stage<L, KS>());
 }
 
-template <int W, int RW>
+// The biases' copy in shared memory, after the tiles and the ring: each
+// trunk layer's, the bottleneck's and the rgb hidden layer's.
+__host__ __device__ constexpr int bias_elems(int depth, int w, int rw) {
+  return (depth + 1) * w + rw;
+}
+
+template <int W, int RW, int KS, int STAGES>
 __global__ void __launch_bounds__(RTHREADS, 1)
     nerf_bwd_rows_kernel(const __grid_constant__ NerfBwdArgs a) {
   constexpr int L = bwd_cols<W, RW>();
   constexpr int LDB = L + RPAD;
-  constexpr int STAGE = ring_stage<L>();
+  using P = Pipe<KS, STAGES, ring_stage<L, KS>()>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* b0 = xs + RBM * LDX;
@@ -380,6 +513,7 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   bf16* gr_s = b1 + RBM * LDB;
   bf16* ga_s = gr_s + RBM * LDG;
   bf16* ring = ga_s + RBM * LDG;
+  bf16* bias_s = ring + STAGES * P::STAGE;
 
   const size_t lr = (size_t)blockIdx.x * RBM;  // chunk-local first row
   const int grow = a.row0 + (int)lr;           // global first row
@@ -387,47 +521,121 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   const bool has_bt = a.flags & HAS_BOTTLENECK;
   const bool alpha_bt = a.flags & ALPHA_FROM_BT;
   const bool rgb_bt = a.flags & RGB_FROM_BT;
-  const int last = a.depth - 1;
+  const int depth = a.depth, last = depth - 1;
+  auto skip = [&](int i) { return i > 0 && ((a.skip_mask >> i) & 1); };
 
+  // The products, as lists of terms (Seg), in the order they run. The
+  // forward: trunk layer i (its skip term, if any, second), the bottleneck
+  // and the rgb hidden layer y. The backward: gy, g_bt, the last trunk
+  // layer's g_h, then per trunk layer i from the last the skip layer's dx
+  // term and layer i's g_h (layer 0's dx).
+  auto fwd_layer = [&](int i, Seg (&s)[2]) {
+    s[0] = i == 0 ? Seg{xs, LDX, CPAD, a.w[0]} : Seg{b0, LDB, W, a.w[i]};
+    s[1] = Seg{xs, LDX, skip(i) ? CPAD : 0, a.wx[i]};
+  };
+  const Seg bot[1] = {{b0, LDB, has_bt ? W : 0, a.bot_w}};
+  const Seg yh[1] = {{rgb_bt ? b1 : b0, LDB, W, a.rh_w}};
+  const Seg gy_p[1] = {{gr_s, LDG, HEAD, a.rl_w}};
+  const Seg gbt_p[2] = {{b0, LDB, has_bt && rgb_bt ? RW : 0, a.rh_w},
+                        {ga_s, LDG, has_bt && alpha_bt ? HEAD : 0, a.al_w}};
+  const Seg gh_p[3] = {{b0, LDB, has_bt && rgb_bt ? 0 : RW, a.rh_w},
+                       {ga_s, LDG, has_bt && alpha_bt ? 0 : HEAD, a.al_w},
+                       {b1, LDB, has_bt ? W : 0, a.bot_w}};
+  // The backward trunk's products read b1 (layer i's g_pre).
+  auto bwd_dx_skip = [&](int i, Seg (&s)[1]) { s[0] = Seg{b1, LDB, W, a.wx[i]}; };
+  auto bwd_layer = [&](int i, Seg (&s)[1]) { s[0] = Seg{b1, LDB, W, a.w[i]}; };
+  // Begins the first product of backward trunk layer i.
+  auto begin_bwd_layer = [&](int i) {
+    Seg s[1];
+    if (skip(i)) {
+      bwd_dx_skip(i, s);
+      begin<CPAD, true, P>(s, ring);
+    } else {
+      bwd_layer(i, s);
+      if (i == 0)
+        begin<CPAD, true, P>(s, ring);
+      else
+        begin<W, true, P>(s, ring);
+    }
+  };
+
+  {
+    Seg s[2];
+    fwd_layer(0, s);
+    begin<W, false, P>(s, ring);
+  }
+  // The biases, where they fit, as one more cp.async group: the first
+  // product's closing wait covers it.
+  if (a.bias_in_smem) {
+    const int nvec = bias_elems(depth, W, RW) / 8;
+    for (int v = threadIdx.x; v < nvec; v += RTHREADS) {
+      const int e = v * 8;
+      const bf16* src = e < depth * W ? a.b[e / W] + e % W
+                        : e < (depth + 1) * W ? a.bot_b + (e - depth * W)
+                                              : a.rh_b + (e - (depth + 1) * W);
+      const bool ok = e < depth * W || e >= (depth + 1) * W || has_bt;
+      cp_async16(bias_s + e, ok ? src : a.rh_b, ok);
+    }
+  }
+  cp_async_commit();
+  auto layer_bias = [&](int i) {
+    return a.bias_in_smem ? bias_s + i * W : a.b[i];
+  };
+  const bf16* bias_bot = a.bias_in_smem ? bias_s + depth * W : a.bot_b;
+  const bf16* bias_rh = a.bias_in_smem ? bias_s + (depth + 1) * W : a.rh_b;
   load_tile<CPAD>(a.x + (size_t)grow * a.c_in, a.c_in, rows_valid, xs, LDX);
   load_tile<HEAD>(a.g_rgb + (size_t)grow * OUT_COLS, OUT_COLS, rows_valid,
                   gr_s, LDG);
   load_tile<HEAD>(a.g_alpha + (size_t)grow * OUT_COLS, OUT_COLS, rows_valid,
                   ga_s, LDG);
+  fence_async();
   __syncthreads();
   store_tile<CPAD>(xs, LDX, a.ws_x + lr * CPAD);
   store_tile<HEAD>(gr_s, LDG, a.ws_gr + lr * HEAD);
   store_tile<HEAD>(ga_s, LDG, a.ws_ga + lr * HEAD);
 
   // ---- forward recompute, in place in b0, saving every activation.
-  for (int i = 0; i < a.depth; ++i) {
+  for (int i = 0; i < depth; ++i) {
     Frag<W> acc;
     acc.zero();
-    if (i == 0)
-      product<W, false, STAGE>(acc, xs, LDX, CPAD, a.w[0], ring);
-    else
-      product<W, false, STAGE>(acc, b0, LDB, W, a.w[i], ring);
-    if (i > 0 && ((a.skip_mask >> i) & 1))
-      product<W, false, STAGE>(acc, xs, LDX, CPAD, a.wx[i], ring);
-    epi_act<W>(acc, a.b[i], nullptr, rows_valid, true, b0, LDB);
+    {
+      Seg s[2];
+      fwd_layer(i, s);
+      run<W, false, P>(acc, s, ring);
+    }
+    if (i < last) {
+      Seg s[2];
+      fwd_layer(i + 1, s);
+      begin<W, false, P>(s, ring);
+    } else if (has_bt) {
+      begin<W, false, P>(bot, ring);
+    } else {
+      begin<RW, false, P>(yh, ring);
+    }
+    epi_act<W>(acc, layer_bias(i), nullptr, rows_valid, true, b0, LDB);
+    fence_async();
     __syncthreads();
     store_tile<W>(b0, LDB, a.ws_h[i] + lr * W);
   }
   if (has_bt) {
     Frag<W> acc;
     acc.zero();
-    product<W, false, STAGE>(acc, b0, LDB, W, a.bot_w, ring);
-    epi_act<W>(acc, a.bot_b, nullptr, rows_valid, false, b1, LDB);
+    run<W, false, P>(acc, bot, ring);
+    begin<RW, false, P>(yh, ring);
+    epi_act<W>(acc, bias_bot, nullptr, rows_valid, false, b1, LDB);
+    fence_async();
     __syncthreads();
     store_tile<W>(b1, LDB, a.ws_bt + lr * W);
   }
   {  // y = relu(bt or h @ rh_w + rh_b + row_bias), into b0
     Frag<RW> acc;
     acc.zero();
-    product<RW, false, STAGE>(acc, rgb_bt ? b1 : b0, LDB, W, a.rh_w, ring);
+    run<RW, false, P>(acc, yh, ring);
+    begin<RW, true, P>(gy_p, ring);
     const bf16* rb =
         a.row_bias != nullptr ? a.row_bias + (size_t)grow * RW : nullptr;
-    epi_act<RW>(acc, a.rh_b, rb, rows_valid, true, b0, LDB);
+    epi_act<RW>(acc, bias_rh, rb, rows_valid, true, b0, LDB);
+    fence_async();
     __syncthreads();
     store_tile<RW>(b0, LDB, a.ws_y + lr * RW);
   }
@@ -437,10 +645,15 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   {
     Frag<RW> acc;
     acc.zero();
-    product<RW, true, STAGE>(acc, gr_s, LDG, HEAD, a.rl_w, ring);
+    run<RW, true, P>(acc, gy_p, ring);
+    if (has_bt)
+      begin<W, true, P>(gbt_p, ring);
+    else
+      begin<W, true, P>(gh_p, ring);
     epi_grad<RW>(acc, b0, LDB, b0, LDB,
                  a.drb != nullptr ? a.drb + (size_t)grow * RW : nullptr,
                  rows_valid);
+    fence_async();
     __syncthreads();
     store_tile<RW>(b0, LDB, a.ws_gy + lr * RW);
   }
@@ -448,23 +661,28 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   if (has_bt) {
     Frag<W> acc;
     acc.zero();
-    if (rgb_bt) product<W, true, STAGE>(acc, b0, LDB, RW, a.rh_w, ring);
-    if (alpha_bt) product<W, true, STAGE>(acc, ga_s, LDG, HEAD, a.al_w, ring);
+    run<W, true, P>(acc, gbt_p, ring);
+    begin<W, true, P>(gh_p, ring);
     epi_grad<W>(acc, nullptr, 0, b1, LDB, nullptr, rows_valid);
+    fence_async();
     __syncthreads();
     store_tile<W>(b1, LDB, a.ws_gbt + lr * W);
   }
   // g_h of the last trunk layer: the rest of the head cotangents plus the
   // bottleneck's input cotangent; masked, it is that layer's g_pre, in b1.
+  // With gy consumed (it fed g_bt), b0 receives the mask tile during the
+  // product; otherwise the epilogue reads it from the workspace.
   {
     Frag<W> acc;
     acc.zero();
-    if (!(has_bt && rgb_bt))
-      product<W, true, STAGE>(acc, b0, LDB, RW, a.rh_w, ring);
-    if (!(has_bt && alpha_bt))
-      product<W, true, STAGE>(acc, ga_s, LDG, HEAD, a.al_w, ring);
-    if (has_bt) product<W, true, STAGE>(acc, b1, LDB, W, a.bot_w, ring);
-    epi_grad<W>(acc, a.ws_h[last] + lr * W, W, b1, LDB, nullptr, rows_valid);
+    const bf16* h_last = a.ws_h[last] + lr * W;
+    const bool side = has_bt && rgb_bt;
+    run<W, true, P>(acc, gh_p, ring,
+                    side ? Side{h_last, W, b0, LDB, W} : Side{});
+    begin_bwd_layer(last);
+    epi_grad<W>(acc, side ? b0 : h_last, side ? LDB : W, b1, LDB, nullptr,
+                rows_valid);
+    fence_async();
     __syncthreads();
   }
   // The trunk, last layer first: b1 holds layer i's g_pre, b0 receives
@@ -474,38 +692,56 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   bool dx_written = false;
   for (int i = last; i >= 0; --i) {
     store_tile<W>(b1, LDB, a.ws_gp[i] + lr * W);
-    if (i > 0 && ((a.skip_mask >> i) & 1)) {
+    if (skip(i)) {
       Frag<CPAD> acc;
       acc.zero();
-      product<CPAD, true, STAGE>(acc, b1, LDB, W, a.wx[i], ring);
+      Seg s[1];
+      bwd_dx_skip(i, s);
+      run<CPAD, true, P>(acc, s, ring);
+      bwd_layer(i, s);
+      begin<W, true, P>(s, ring);
       epi_f32<CPAD>(acc, dx, a.c_in, a.c_in, rows_valid, dx_written);
       dx_written = true;
     }
+    Seg s[1];
+    bwd_layer(i, s);
     if (i == 0) {
       Frag<CPAD> acc;
       acc.zero();
-      product<CPAD, true, STAGE>(acc, b1, LDB, W, a.w[0], ring);
+      run<CPAD, true, P>(acc, s, ring);
       epi_f32<CPAD>(acc, dx, a.c_in, a.c_in, rows_valid, dx_written);
     } else {
       Frag<W> acc;
       acc.zero();
-      product<W, true, STAGE>(acc, b1, LDB, W, a.w[i], ring,
-                              Side{a.ws_h[i - 1] + lr * W, W, b0, LDB, W});
+      run<W, true, P>(acc, s, ring, Side{a.ws_h[i - 1] + lr * W, W, b0, LDB, W});
+      begin_bwd_layer(i - 1);
       epi_grad<W>(acc, b0, LDB, b1, LDB, nullptr, rows_valid);
+      fence_async();
       __syncthreads();
     }
   }
+  bulk_wait();
 }
 
-template <int W, int RW>
-cudaError_t launch_bwd(const NerfBwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<W, RW>();
-  cudaError_t err = cudaFuncSetAttribute(
-      nerf_bwd_rows_kernel<W, RW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// KS and STAGES per width: 32-row slices at width 256, where shared
+// memory allows no more; 64-row slices (half the barriers) below.
+template <int W, int RW, int KS = (W > 128 ? 32 : 64), int STAGES = 3>
+cudaError_t launch_bwd(NerfBwdArgs a, int device, cudaStream_t stream) {
+  int max_smem = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  size_t smem = bwd_smem_bytes<W, RW, KS, STAGES>();
+  const size_t bias_bytes = sizeof(bf16) * bias_elems(a.depth, W, RW);
+  a.bias_in_smem = smem + bias_bytes <= (size_t)max_smem;
+  if (a.bias_in_smem) smem += bias_bytes;
+  err = cudaFuncSetAttribute(nerf_bwd_rows_kernel<W, RW, KS, STAGES>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return err;
   const int grid = (a.rows + RBM - 1) / RBM;
-  nerf_bwd_rows_kernel<W, RW><<<grid, RTHREADS, smem, stream>>>(a);
+  nerf_bwd_rows_kernel<W, RW, KS, STAGES>
+      <<<grid, RTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -560,9 +796,12 @@ int nerf_mlp_backward_rows(void* const* p, int row0, int rows, int c_in,
   a.flags = flags;
   cudaStream_t s = (cudaStream_t)stream;
   // The widths of ops/fused_mlp.py _NERF_WIDTHS.
-  if (width == 256 && rgb_width == 128) return (int)launch_bwd<256, 128>(a, s);
-  if (width == 128 && rgb_width == 128) return (int)launch_bwd<128, 128>(a, s);
-  if (width == 32 && rgb_width == 128) return (int)launch_bwd<32, 128>(a, s);
+  if (width == 256 && rgb_width == 128)
+    return (int)launch_bwd<256, 128>(a, device, s);
+  if (width == 128 && rgb_width == 128)
+    return (int)launch_bwd<128, 128>(a, device, s);
+  if (width == 32 && rgb_width == 128)
+    return (int)launch_bwd<32, 128>(a, device, s);
   return (int)cudaErrorInvalidValue;
 }
 

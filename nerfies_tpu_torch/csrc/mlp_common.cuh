@@ -1,5 +1,5 @@
 // Building blocks shared by the fused MLP kernels (fused_mlp.cu,
-// fused_mlp_bwd.cu, fused_warp.cu): row tiles in shared memory, weight
+// fused_warp.cu): row tiles in shared memory, weight
 // slices streamed from L2, nvcuda::wmma bf16 products with f32
 // accumulators, and the epilogues that round to bf16 or write f32.
 //

@@ -1,8 +1,7 @@
 // Building blocks of the pipelined kernels (fused_mlp_bwd.cu,
-// weight_grad.cu): cp.async copies into shared memory, ldmatrix loads of
-// mma fragments, and mma.sync.m16n8k16 bf16 products with f32
-// accumulators. sm_80 instructions, which Hopper runs at a large share of
-// its tensor rate when the copies are pipelined.
+// weight_grad.cu): cp.async copies into shared memory, bulk copies out of
+// it, ldmatrix loads of mma fragments, and mma.sync.m16n8k16 bf16
+// products with f32 accumulators.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"): for
 // lane l, g = l / 4 and q = l % 4,
@@ -51,6 +50,39 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from shared to global memory, run by the copy engine (sm_90);
+// commit and wait as for cp.async, in their own groups.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::);
+}
+
+// Waits until this thread's bulk copies are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's earlier shared-memory writes before later reads of
+// the copy engine (the async proxy); a barrier must follow.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The same between the copy engine's completed writes and this thread's
+// later accesses, in any state space (global memory too).
+__device__ __forceinline__ void fence_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -30,19 +30,20 @@
 // as few times as it can: a block owns a tall tile, all TN = 256 (or 128)
 // columns of G against TM = 128 columns of A, so A is read once and G
 // ceil(m / 128) times (twice at width 256); a ring of DW_STAGES cp.async
-// stages keeps 32-row strips of both in flight while mma.sync products run
-// on the strip that has landed. 8 warps, each a 64 x TN/4 tile of the
+// stages keeps KR-row strips of both in flight while mma.sync products run
+// on the strip that has landed. 16 warps, each a 32 x TN/4 tile of the
 // products in registers; A^T's fragments come from the row-major strip
-// through ldmatrix.trans, G's likewise.
+// through ldmatrix.trans, G's likewise. The bias sums run on all threads,
+// a column pair and a quarter (or eighth) of each strip apiece.
 
 #include "mma_pipe.cuh"
 
 namespace {
 
-constexpr int DW_THREADS = 256;   // 8 warps: 2 along m x 4 along n
+constexpr int DW_THREADS = 512;   // 16 warps: 4 along m x 4 along n
 constexpr int TM = 128;           // dW rows (columns of A) per block
-constexpr int KR = 32;            // workspace rows per stage
-constexpr int DW_STAGES = 4;
+constexpr int KR = 64;            // workspace rows per stage
+constexpr int DW_STAGES = 3;
 constexpr int DPAD = 8;           // shared row padding (bf16 elements)
 constexpr int LDA_S = TM + DPAD;
 constexpr int MAX_JOBS = 24;
@@ -79,12 +80,17 @@ constexpr size_t dw_smem_bytes() {
 }
 
 template <int TN>
-__global__ void __launch_bounds__(DW_THREADS, TN == 128 ? 2 : 1)
+__global__ void __launch_bounds__(DW_THREADS, 1)
     dw_partial_kernel(const __grid_constant__ DwArgs a) {
   constexpr int LDG_S = TN + DPAD;
   constexpr int SE = dw_stage_elems<TN>();
   constexpr int WN = TN / 4;   // columns per warp
   constexpr int NTW = WN / 8;  // n8 tiles per warp (even)
+  // The bias: thread t sums column pair t % PAIRS over rows (t / PAIRS)
+  // * ROWS_PER .. + ROWS_PER of each strip.
+  constexpr int PAIRS = TN / 2;
+  constexpr int GROUPS = DW_THREADS / PAIRS;
+  constexpr int ROWS_PER = KR / GROUPS;
   extern __shared__ __align__(128) unsigned char dw_smem[];
   bf16* smem = reinterpret_cast<bf16*>(dw_smem);
 
@@ -101,15 +107,16 @@ __global__ void __launch_bounds__(DW_THREADS, TN == 128 ? 2 : 1)
   const int steps = (r_end - r_begin + KR - 1) / KR;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp & 1) * 64;     // this warp's first row of the tile
-  const int wn = (warp >> 1) * WN;    // and first column
+  const int wm = (warp & 3) * 32;     // this warp's first row of the tile
+  const int wn = (warp >> 2) * WN;    // and first column
   const bool do_bias = job.bias_rows > 0 && m0 == 0;
   const int bias_end = min(r_end, job.bias_rows);
-  float col_sum = 0.0f;  // thread t < TN: column n0 + t of the bias
+  const int pair = tid % PAIRS, group = tid / PAIRS;
+  float2 col_sum = make_float2(0.0f, 0.0f);
 
-  float acc[4][NTW][4];
+  float acc[2][NTW][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < NTW; ++j)
 #pragma unroll
@@ -122,7 +129,8 @@ __global__ void __launch_bounds__(DW_THREADS, TN == 128 ? 2 : 1)
     bf16* gs = as + KR * LDA_S;
     const int r0 = r_begin + step * KR;
 #pragma unroll
-    for (int v = tid; v < KR * (TM / 8); v += DW_THREADS) {
+    for (int i = 0; i < KR * (TM / 8) / DW_THREADS; ++i) {
+      const int v = tid + i * DW_THREADS;
       const int r = v / (TM / 8), c = (v % (TM / 8)) * 8;
       const bool ok = r0 + r < r_end && m0 + c < job.m;
       cp_async16(as + r * LDA_S + c,
@@ -130,7 +138,8 @@ __global__ void __launch_bounds__(DW_THREADS, TN == 128 ? 2 : 1)
                  ok);
     }
 #pragma unroll
-    for (int v = tid; v < KR * (TN / 8); v += DW_THREADS) {
+    for (int i = 0; i < KR * (TN / 8) / DW_THREADS; ++i) {
+      const int v = tid + i * DW_THREADS;
       const int r = v / (TN / 8), c = (v % (TN / 8)) * 8;
       const bool ok = r0 + r < r_end && n0 + c < job.n;
       cp_async16(gs + r * LDG_S + c,
@@ -152,18 +161,24 @@ __global__ void __launch_bounds__(DW_THREADS, TN == 128 ? 2 : 1)
     cp_async_commit();
     const bf16* as = smem + (t % DW_STAGES) * SE;
     const bf16* gs = as + KR * LDA_S;
-    if (do_bias && tid < TN) {
-      const int last = min(KR, bias_end - (r_begin + t * KR));
-      for (int r = 0; r < last; ++r)
-        col_sum += __bfloat162float(gs[r * LDG_S + tid]);
+    if (do_bias) {
+      const int r0 = group * ROWS_PER;
+      const int last = min(r0 + ROWS_PER, bias_end - (r_begin + t * KR));
+      for (int r = r0; r < last; ++r) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(gs + r * LDG_S +
+                                                     2 * pair));
+        col_sum.x += v.x;
+        col_sum.y += v.y;
+      }
     }
 #pragma unroll
     for (int ks = 0; ks < KR; ks += 16) {
       // A^T fragments: matrix i of lane group i = lane / 8 holds k offset
       // (i / 2) * 8 and m offset (i % 2) * 8.
-      uint32_t af[4][4];
+      uint32_t af[2][4];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+      for (int mt = 0; mt < 2; ++mt)
         if (m0 + wm + mt * 16 < job.m)
           ldsm_x4_t(af[mt], as + (ks + (lane & 7) + ((lane >> 4) << 3)) *
                                      LDA_S +
@@ -177,7 +192,7 @@ __global__ void __launch_bounds__(DW_THREADS, TN == 128 ? 2 : 1)
                                 LDG_S +
                            nb + ((lane >> 4) << 3));
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
+        for (int mt = 0; mt < 2; ++mt) {
           if (m0 + wm + mt * 16 >= job.m) continue;
           mma16816(acc[mt][2 * jp], af[mt], bfr[0], bfr[1]);
           mma16816(acc[mt][2 * jp + 1], af[mt], bfr[2], bfr[3]);
@@ -189,7 +204,7 @@ __global__ void __launch_bounds__(DW_THREADS, TN == 128 ? 2 : 1)
 
   float* slot = a.partial + (size_t)split * a.stride;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int mt = 0; mt < 2; ++mt) {
     const int row = m0 + wm + mt * 16 + (lane >> 2);
     if (row >= job.m) continue;
 #pragma unroll
@@ -202,8 +217,21 @@ __global__ void __launch_bounds__(DW_THREADS, TN == 128 ? 2 : 1)
           make_float2(acc[mt][j][2], acc[mt][j][3]);
     }
   }
-  if (do_bias && tid < TN && n0 + tid < job.n)
-    slot[job.bias_out + n0 + tid] = col_sum;
+  if (do_bias) {
+    // The row groups' sums, added in group order.
+    __syncthreads();
+    float2* sums = reinterpret_cast<float2*>(dw_smem);
+    sums[group * PAIRS + pair] = col_sum;
+    __syncthreads();
+    if (tid < PAIRS && n0 + 2 * tid < job.n) {
+      float2 total = sums[tid];
+      for (int g = 1; g < GROUPS; ++g) {
+        total.x += sums[g * PAIRS + tid].x;
+        total.y += sums[g * PAIRS + tid].y;
+      }
+      *reinterpret_cast<float2*>(slot + job.bias_out + n0 + 2 * tid) = total;
+    }
+  }
 }
 
 __global__ void dw_reduce_kernel(const float* __restrict__ partial,

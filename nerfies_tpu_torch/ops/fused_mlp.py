@@ -474,6 +474,9 @@ _NERF_BWD_CHUNK = 262144
 _NERF_BWD_TILE = 128  # rows per block of csrc/fused_mlp_bwd.cu
 _DW_ALIGN = 64  # floats between job offsets in the flat dW buffer
 _DW_TILE_M = 128  # dW rows per block of weight_grad.cu
+# Blocks per SM that the weight-gradient pass aims for, through its row
+# splits: several waves even out tiles of unequal work.
+_DW_WAVES = 6
 
 
 def _nerf_plain_bwd(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
@@ -639,10 +642,10 @@ class _WeightGrads:
     _check_launch(lib, rc, 'weight_grad')
 
   def splits(self, sms):
-    """Row splits that fill `sms` SMs about once with the jobs' tiles.
+    """Row splits that give each of `sms` SMs about _DW_WAVES blocks.
 
     Each tile counts by the share of a full tile it covers; weight_grad.cu
-    fits one block of 256-column tiles per SM, or two of 128.
+    runs one block per SM at a time.
     """
     tn = self.tile_n
     work = 0.0
@@ -651,8 +654,7 @@ class _WeightGrads:
         for n0 in range(0, j['n'], tn):
           work += (min(_DW_TILE_M, j['m'] - m0) / _DW_TILE_M
                    * min(tn, j['n'] - n0) / tn)
-    blocks_per_sm = 1 if tn == 256 else 2
-    return max(1, min(64, int(sms * blocks_per_sm / work)))
+    return max(1, min(64, int(_DW_WAVES * sms / work)))
 
   def views(self, flat):
     out = {}
