@@ -23,19 +23,20 @@
 // either: weight slices that land between barriers instead of ahead of
 // them, epilogues that wait on global memory, register spills.
 //
-// Design. A block of 16 warps owns RBM = 128 rows, so each weight byte
-// streamed from L2 serves 128 rows. Warp w computes WARP_ROWS = 32 rows
-// and a quarter of the columns of every product, as mma.sync.m16n8k16
-// bf16 tiles with f32 accumulators in registers (64 at width 256), fed by
-// ldmatrix. Weight slices of KS rows (32 at width 256, 64 below) flow
-// through a ring of 3 cp.async stages, one barrier per slice. A product
-// sums up to three terms (A_i @ B_i, as the skip layer and the head
-// cotangents need) in one slice stream, and its first slices are issued
-// before the previous product's epilogue, so they land while it runs.
-// Weights stay in Flax's (in, out) layout: a product with W stages row
-// slices and reads B fragments with ldmatrix.trans; a product with W^T
-// (the cotangents) stages column slices and reads them with plain
-// ldmatrix, so no transposed copy exists.
+// Design. A block owns RBM = 128 rows, so each weight byte streamed from
+// L2 serves 128 rows. Each warp computes 64 rows (8 warps, at width 256)
+// or 32 rows (16 warps, below) and a quarter of the columns of every
+// product, as mma.sync.m16n8k16 bf16 tiles with f32 accumulators in
+// registers, fed by ldmatrix, with no spills. Weight slices of KS rows (32
+// at width 256, 64 below) flow through a ring of 3 cp.async stages, one
+// barrier per slice. A product sums up to three terms (A_i @ B_i, as the
+// skip layer and the head cotangents need) in one slice stream; where the
+// registers allow (16 warps), its first slices are issued before the
+// previous product's epilogue, so that they land while it runs. Weights
+// stay in Flax's (in, out) layout: a product with W stages row slices and
+// reads B fragments with ldmatrix.trans; a product with W^T (the
+// cotangents) stages column slices and reads them with plain ldmatrix, so
+// no transposed copy exists.
 //
 // Shared memory (227 KB at width 256, with the layers' biases where they
 // fit): the encoding tile, two activation buffers b0 / b1 of max(W, RW)
@@ -52,10 +53,16 @@
 namespace {
 
 constexpr int RBM = 128;        // rows per block
-constexpr int WARP_ROWS = 32;   // rows of a product per warp
-constexpr int MT = WARP_ROWS / 16;          // m16 tiles per warp
-constexpr int ROW_GROUPS = RBM / WARP_ROWS;
-constexpr int RTHREADS = ROW_GROUPS * 4 * 32;  // x 4 column quarters
+// A warp owns MT m16 tiles of rows (MT * 16 rows) and a quarter of the
+// columns of every product: MT = 4, 8 warps, at width 256, where a
+// thread's 128 accumulators leave no room for a second warp's worth of
+// state; MT = 2, 16 warps, below, for twice the warps to hide latency.
+template <int W>
+__host__ __device__ constexpr int mtiles() { return W > 128 ? 4 : 2; }
+
+__host__ __device__ constexpr int threads_for(int mt) {
+  return RBM / (mt * 16) * 4 * 32;
+}
 constexpr int RPAD = 8;         // shared row padding (bf16 elements)
 constexpr int CPAD = 64;        // input columns, zero-padded
 constexpr int LDX = CPAD + RPAD;
@@ -69,8 +76,10 @@ enum { HAS_BOTTLENECK = 1, ALPHA_FROM_BT = 2, RGB_FROM_BT = 4 };
 // The accumulators of one warp for an RBM x N product: MT m16 tiles by NTW
 // n8 tiles, the warp's column quarter (for N = 16, warps of quarters 2 and
 // 3 hold none).
-template <int N>
+template <int N, int MT_>
 struct Frag {
+  static constexpr int MT = MT_;
+  static constexpr int ROW_GROUPS = RBM / (MT * 16);
   static constexpr int NT = N / 8;
   static constexpr int NTW = NT >= 4 ? NT / 4 : 1;
   float c[MT][NTW][4];
@@ -84,7 +93,7 @@ struct Frag {
         for (int e = 0; e < 4; ++e) c[i][j][e] = 0.0f;
   }
   __device__ static int row0() {
-    return ((threadIdx.x >> 5) % ROW_GROUPS) * WARP_ROWS;
+    return ((threadIdx.x >> 5) % ROW_GROUPS) * MT * 16;
   }
   __device__ static int col0() {
     return ((threadIdx.x >> 5) / ROW_GROUPS) * NTW * 8;
@@ -101,14 +110,17 @@ struct Pipe {
 };
 
 // A tile that a product copies into shared memory beside its weight
-// slices: RBM rows of `cols` bf16 columns (a multiple of 8).
+// slices: RBM rows of COLS bf16 columns (a multiple of 8), row stride COLS
+// at src (global) and LDD at dst (shared). The strides are constants, to
+// spare registers where a thread holds 128 accumulators; COLS = 0: none.
+template <int COLS_, int LDD_>
 struct Side {
-  const bf16* src;  // global, row stride src_ld; null: no copy
-  int src_ld;
-  bf16* dst;        // shared, row stride dst_ld
-  int dst_ld;
-  int cols;
+  static constexpr int COLS = COLS_;
+  static constexpr int LDD = LDD_;
+  const bf16* src;
+  bf16* dst;
 };
+using NoSide = Side<0, 0>;
 
 // One term of a product: A[RBM x k] in shared memory (row stride lda)
 // times k rows of B taken from w. A product sums its terms in one set of
@@ -164,13 +176,13 @@ __device__ __forceinline__ void load_slice(const Slice& r, bf16* stage) {
   constexpr int LDW = TRANS ? P::KS + RPAD : N + RPAD;
   const int tid = threadIdx.x;
   if constexpr (!TRANS) {
-    for (int v = tid; v < r.kk * (N / 8); v += RTHREADS) {
+    for (int v = tid; v < r.kk * (N / 8); v += blockDim.x) {
       const int i = v / (N / 8), c = (v % (N / 8)) * 8;
       cp_async16(stage + i * LDW + c, r.w + (size_t)(r.k0 + i) * N + c, true);
     }
   } else {
     const int vpr = r.kk / 8;
-    for (int v = tid; v < N * vpr; v += RTHREADS) {
+    for (int v = tid; v < N * vpr; v += blockDim.x) {
       const int i = v / vpr, c = (v % vpr) * 8;
       cp_async16(stage + i * LDW + c, r.w + (size_t)i * r.k + r.k0 + c, true);
     }
@@ -197,17 +209,17 @@ __device__ void begin(const Seg (&s)[NSEG], bf16* ring) {
 // side copy, if any, is spread over the slices. It ends with a barrier,
 // after which the ring, every A and the side copy's tile may be written or
 // read by any thread, and this block's bulk stores are complete.
-template <int N, bool TRANS, class P, int NSEG>
-__device__ void run(Frag<N>& acc, const Seg (&s)[NSEG], bf16* ring,
-                    const Side& side = Side{}) {
-  constexpr int NTW = Frag<N>::NTW;
+template <int N, bool TRANS, class P, int NSEG, int MT, class S = NoSide>
+__device__ void run(Frag<N, MT>& acc, const Seg (&s)[NSEG], bf16* ring,
+                    const S& side = S{nullptr, nullptr}) {
+  constexpr int NTW = Frag<N, MT>::NTW;
   constexpr int LDW = TRANS ? P::KS + RPAD : N + RPAD;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
+  const int wm = Frag<N, MT>::row0(), nb0 = Frag<N, MT>::col0();
   const int steps = slice_count<P>(s);
-  const int side_vecs = side.src != nullptr ? RBM * (side.cols / 8) : 0;
+  constexpr int SIDE_VPR = S::COLS / 8;  // 16-byte vectors per row
+  const int side_vecs = side.src != nullptr ? RBM * SIDE_VPR : 0;
   const int side_step = steps > 0 ? (side_vecs + steps - 1) / steps : 0;
-  const int side_vpr = side.cols / 8;
 
   for (int t = 0; t < steps; ++t) {
     cp_async_wait<P::STAGES - 2>();
@@ -216,11 +228,13 @@ __device__ void run(Frag<N>& acc, const Seg (&s)[NSEG], bf16* ring,
       load_slice<N, TRANS, P>(slice_at<P>(s, t + P::STAGES - 1),
                               ring + ((t + P::STAGES - 1) % P::STAGES) *
                                          P::STAGE);
-    const int v_end = min(side_vecs, (t + 1) * side_step);
-    for (int v = t * side_step + tid; v < v_end; v += RTHREADS) {
-      const int i = v / side_vpr, c = (v % side_vpr) * 8;
-      cp_async16(side.dst + i * side.dst_ld + c,
-                 side.src + (size_t)i * side.src_ld + c, true);
+    if constexpr (S::COLS > 0) {
+      const int v_end = min(side_vecs, (t + 1) * side_step);
+      for (int v = t * side_step + tid; v < v_end; v += blockDim.x) {
+        const int i = v / SIDE_VPR, c = (v % SIDE_VPR) * 8;
+        cp_async16(side.dst + i * S::LDD + c,
+                   side.src + (size_t)i * S::COLS + c, true);
+      }
     }
     cp_async_commit();
     if (nb0 >= N) continue;
@@ -271,51 +285,90 @@ __device__ void run(Frag<N>& acc, const Seg (&s)[NSEG], bf16* ring,
   __syncthreads();
 }
 
-// The epilogues below read what they need from global memory into
-// registers before they use any of it, so that each pays one load latency:
-// all warps of the block reach an epilogue together, and nothing else
-// would hide it.
+// begin and run for a product whose terms `make` writes into a list made
+// on the spot.
+template <int N, bool TRANS, class P, int NSEG, class Make>
+__device__ __forceinline__ void begin_with(Make make, bf16* ring) {
+  Seg s[NSEG];
+  make(s);
+  begin<N, TRANS, P>(s, ring);
+}
+
+template <int N, bool TRANS, class P, int NSEG, class Make, int MT,
+          class S = NoSide>
+__device__ __forceinline__ void run_with(Frag<N, MT>& acc, Make make,
+                                         bf16* ring,
+                                         const S& side = S{nullptr, nullptr}) {
+  Seg s[NSEG];
+  make(s);
+  run<N, TRANS, P>(acc, s, ring, side);
+}
+
+// Runs an epilogue and the next product's `begin`: the begin first where
+// EARLY, so that its slices land during the epilogue.
+template <bool EARLY, class Begin, class Epilogue>
+__device__ __forceinline__ void then(Begin begin_next, Epilogue epilogue) {
+  if constexpr (EARLY) begin_next();
+  epilogue();
+  if constexpr (!EARLY) begin_next();
+}
+
+// The epilogues below read a column pair's bias, or a row's masks,
+// before they use any of it, so that each pays one load latency
+// per step: all warps of the block reach an epilogue together, and
+// nothing else would hide it. schedule_fence() ends a step, so that the
+// compiler does not hoist every step's loads at once, which costs
+// registers a thread with 128 accumulators does not have.
+
+// Keeps the compiler from moving memory accesses across it.
+__device__ __forceinline__ void schedule_fence() {
+  asm volatile("" ::: "memory");
+}
 
 // out (shared, row stride ldo) = bf16(act(acc + bias + row_bias)), with
-// row_bias (global, the block's first row, row stride N, or null) added on
-// the valid rows and the ReLU when `relu`.
-template <int N>
-__device__ void epi_act(const Frag<N>& acc, const bf16* __restrict__ bias,
+// row_bias (global, the block's first row, row stride N; only when
+// ROW_BIAS, and then possibly null) added on the valid rows and the ReLU
+// when `relu`. Without ROW_BIAS no registers go to row biases.
+template <int N, bool ROW_BIAS = false, int MT>
+__device__ void epi_act(const Frag<N, MT>& acc, const bf16* __restrict__ bias,
                         const bf16* __restrict__ row_bias, int rows_valid,
                         bool relu, bf16* out, int ldo) {
-  constexpr int NTW = Frag<N>::NTW;
+  constexpr int NTW = Frag<N, MT>::NTW;
   const int lane = threadIdx.x & 31;
-  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
+  const int wm = Frag<N, MT>::row0(), nb0 = Frag<N, MT>::col0();
   if (nb0 >= N) return;
   const int c0 = nb0 + 2 * (lane & 3);
-  float2 b[NTW];
+  float2 rb[ROW_BIAS ? MT : 1][2][ROW_BIAS ? NTW : 1];
+  if constexpr (ROW_BIAS) {
 #pragma unroll
-  for (int j = 0; j < NTW; ++j)
-    b[j] = __bfloat1622float2(
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
+          rb[mt][h][j] = row_bias != nullptr && r < rows_valid
+                             ? __bfloat1622float2(
+                                   *reinterpret_cast<const __nv_bfloat162*>(
+                                       row_bias + (size_t)r * N + c0 + j * 8))
+                             : make_float2(0.0f, 0.0f);
+        }
+  }
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    const float2 b = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(bias + c0 + j * 8));
-  float2 rb[MT][2][NTW];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) {
+      for (int h = 0; h < 2; ++h) {
         const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
-        rb[mt][h][j] = row_bias != nullptr && r < rows_valid
-                           ? __bfloat1622float2(
-                                 *reinterpret_cast<const __nv_bfloat162*>(
-                                     row_bias + (size_t)r * N + c0 + j * 8))
-                           : make_float2(0.0f, 0.0f);
-      }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
-        float v0 = acc.c[mt][j][2 * h] + b[j].x + rb[mt][h][j].x;
-        float v1 = acc.c[mt][j][2 * h + 1] + b[j].y + rb[mt][h][j].y;
+        float v0 = acc.c[mt][j][2 * h] + b.x;
+        float v1 = acc.c[mt][j][2 * h + 1] + b.y;
+        if constexpr (ROW_BIAS) {
+          v0 += rb[mt][h][j].x;
+          v1 += rb[mt][h][j].y;
+        }
         if (relu) {
           v0 = fmaxf(v0, 0.0f);
           v1 = fmaxf(v1, 0.0f);
@@ -323,62 +376,61 @@ __device__ void epi_act(const Frag<N>& acc, const bf16* __restrict__ bias,
         *reinterpret_cast<__nv_bfloat162*>(out + r * ldo + c0 + j * 8) =
             __floats2bfloat162_rn(v0, v1);
       }
+    schedule_fence();
+  }
 }
 
 // A cotangent product rounded to bf16, zeroed where mask <= 0 (mask: the
 // layer's bf16 activation, the block's first row, row stride ldm, in
 // shared or global memory, or null), to shared memory (out, row stride
 // ldo) and as f32 to f32_out (global, the block's first row, row stride
-// N, valid rows only, or null). The mask is read a 16-row tile at a time.
-template <int N>
-__device__ void epi_grad(const Frag<N>& acc, const bf16* mask, int ldm,
+// N, valid rows only, or null). The mask is read a row at a time.
+template <int N, int MT>
+__device__ void epi_grad(const Frag<N, MT>& acc, const bf16* mask, int ldm,
                          bf16* out, int ldo, float* __restrict__ f32_out,
                          int rows_valid) {
-  constexpr int NTW = Frag<N>::NTW;
+  constexpr int NTW = Frag<N, MT>::NTW;
   const int lane = threadIdx.x & 31;
-  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
+  const int wm = Frag<N, MT>::row0(), nb0 = Frag<N, MT>::col0();
   if (nb0 >= N) return;
   const int c0 = nb0 + 2 * (lane & 3);
   const bf16 zero = __float2bfloat16(0.0f);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    __nv_bfloat162 m[2][NTW];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
+      __nv_bfloat162 m[NTW];
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
-        m[h][j] = mask != nullptr ? *reinterpret_cast<const __nv_bfloat162*>(
-                                        mask + (size_t)r * ldm + c0 + j * 8)
-                                  : __floats2bfloat162_rn(1.0f, 1.0f);
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int j = 0; j < NTW; ++j)
+        m[j] = mask != nullptr ? *reinterpret_cast<const __nv_bfloat162*>(
+                                     mask + (size_t)r * ldm + c0 + j * 8)
+                               : __floats2bfloat162_rn(1.0f, 1.0f);
 #pragma unroll
       for (int j = 0; j < NTW; ++j) {
-        const int r = wm + mt * 16 + (lane >> 2) + 8 * h;
         const int c = c0 + j * 8;
         __nv_bfloat162 v = __floats2bfloat162_rn(acc.c[mt][j][2 * h],
                                                  acc.c[mt][j][2 * h + 1]);
-        if (!(__low2float(m[h][j]) > 0.0f)) v.x = zero;
-        if (!(__high2float(m[h][j]) > 0.0f)) v.y = zero;
+        if (!(__low2float(m[j]) > 0.0f)) v.x = zero;
+        if (!(__high2float(m[j]) > 0.0f)) v.y = zero;
         *reinterpret_cast<__nv_bfloat162*>(out + r * ldo + c) = v;
         if (f32_out != nullptr && r < rows_valid)
           *reinterpret_cast<float2*>(f32_out + (size_t)r * N + c) =
               make_float2(__low2float(v), __high2float(v));
       }
-  }
+      schedule_fence();
+    }
 }
 
 // out[r, c] (global f32, the block's first row, row stride ld) =
 // (add ? out[r, c] : 0) + acc, for the valid rows and the first ncols
 // columns. The same thread writes and later re-reads each element.
-template <int N>
-__device__ void epi_f32(const Frag<N>& acc, float* __restrict__ out, int ld,
+template <int N, int MT>
+__device__ void epi_f32(const Frag<N, MT>& acc, float* __restrict__ out, int ld,
                         int ncols, int rows_valid, bool add) {
-  constexpr int NTW = Frag<N>::NTW;
+  constexpr int NTW = Frag<N, MT>::NTW;
   const int lane = threadIdx.x & 31;
-  const int wm = Frag<N>::row0(), nb0 = Frag<N>::col0();
+  const int wm = Frag<N, MT>::row0(), nb0 = Frag<N, MT>::col0();
   if (nb0 >= N) return;
   float prev[NTW][MT][4];
 #pragma unroll
@@ -409,20 +461,20 @@ __device__ void epi_f32(const Frag<N>& acc, float* __restrict__ out, int ld,
 // src (global f32, the block's first row, row stride c_src) -> a bf16 tile
 // of COLS columns in shared memory (row stride ld), zero past c_src
 // columns and rows_valid rows.
-template <int COLS>
+template <int COLS, int THREADS>
 __device__ void load_tile(const float* __restrict__ src, int c_src,
                           int rows_valid, bf16* dst, int ld) {
-  constexpr int PER_THREAD = RBM * COLS / RTHREADS;
+  constexpr int PER_THREAD = RBM * COLS / THREADS;
   float v[PER_THREAD];
 #pragma unroll
   for (int i = 0; i < PER_THREAD; ++i) {
-    const int e = threadIdx.x + i * RTHREADS;
+    const int e = threadIdx.x + i * THREADS;
     const int r = e / COLS, c = e % COLS;
     v[i] = r < rows_valid && c < c_src ? src[(size_t)r * c_src + c] : 0.0f;
   }
 #pragma unroll
   for (int i = 0; i < PER_THREAD; ++i) {
-    const int e = threadIdx.x + i * RTHREADS;
+    const int e = threadIdx.x + i * THREADS;
     dst[(e / COLS) * ld + e % COLS] = __float2bfloat16(v[i]);
   }
 }
@@ -501,8 +553,14 @@ __host__ __device__ constexpr int bias_elems(int depth, int w, int rw) {
 }
 
 template <int W, int RW, int KS, int STAGES>
-__global__ void __launch_bounds__(RTHREADS, 1)
+__global__ void __launch_bounds__(threads_for(mtiles<W>()), 1)
     nerf_bwd_rows_kernel(const __grid_constant__ NerfBwdArgs a) {
+  constexpr int MT = mtiles<W>();
+  constexpr int THREADS = threads_for(MT);
+  // Where the registers allow (MT = 2), a product's first slices are
+  // issued before the previous product's epilogue, to land while it runs;
+  // at MT = 4 after it, with the accumulators no longer live.
+  constexpr bool EARLY = MT == 2;
   constexpr int L = bwd_cols<W, RW>();
   constexpr int LDB = L + RPAD;
   using P = Pipe<KS, STAGES, ring_stage<L, KS>()>;
@@ -533,17 +591,29 @@ __global__ void __launch_bounds__(RTHREADS, 1)
     s[0] = i == 0 ? Seg{xs, LDX, CPAD, a.w[0]} : Seg{b0, LDB, W, a.w[i]};
     s[1] = Seg{xs, LDX, skip(i) ? CPAD : 0, a.wx[i]};
   };
-  const Seg bot[1] = {{b0, LDB, has_bt ? W : 0, a.bot_w}};
-  const Seg yh[1] = {{rgb_bt ? b1 : b0, LDB, W, a.rh_w}};
-  const Seg gy_p[1] = {{gr_s, LDG, HEAD, a.rl_w}};
-  const Seg gbt_p[2] = {{b0, LDB, has_bt && rgb_bt ? RW : 0, a.rh_w},
-                        {ga_s, LDG, has_bt && alpha_bt ? HEAD : 0, a.al_w}};
-  const Seg gh_p[3] = {{b0, LDB, has_bt && rgb_bt ? 0 : RW, a.rh_w},
-                       {ga_s, LDG, has_bt && alpha_bt ? 0 : HEAD, a.al_w},
-                       {b1, LDB, has_bt ? W : 0, a.bot_w}};
+  // Each list is made where it is used (from the kernel's parameters), so
+  // that none holds registers between its products.
+  auto bot_p = [&](Seg (&s)[1]) { s[0] = Seg{b0, LDB, W, a.bot_w}; };
+  auto y_p = [&](Seg (&s)[1]) {
+    s[0] = Seg{rgb_bt ? b1 : b0, LDB, W, a.rh_w};
+  };
+  auto gy_p = [&](Seg (&s)[1]) { s[0] = Seg{gr_s, LDG, HEAD, a.rl_w}; };
+  auto gbt_p = [&](Seg (&s)[2]) {
+    s[0] = Seg{b0, LDB, rgb_bt ? RW : 0, a.rh_w};
+    s[1] = Seg{ga_s, LDG, alpha_bt ? HEAD : 0, a.al_w};
+  };
+  auto gh_p = [&](Seg (&s)[3]) {
+    s[0] = Seg{b0, LDB, has_bt && rgb_bt ? 0 : RW, a.rh_w};
+    s[1] = Seg{ga_s, LDG, has_bt && alpha_bt ? 0 : HEAD, a.al_w};
+    s[2] = Seg{b1, LDB, has_bt ? W : 0, a.bot_w};
+  };
   // The backward trunk's products read b1 (layer i's g_pre).
-  auto bwd_dx_skip = [&](int i, Seg (&s)[1]) { s[0] = Seg{b1, LDB, W, a.wx[i]}; };
-  auto bwd_layer = [&](int i, Seg (&s)[1]) { s[0] = Seg{b1, LDB, W, a.w[i]}; };
+  auto bwd_dx_skip = [&](int i, Seg (&s)[1]) {
+    s[0] = Seg{b1, LDB, W, a.wx[i]};
+  };
+  auto bwd_layer = [&](int i, Seg (&s)[1]) {
+    s[0] = Seg{b1, LDB, W, a.w[i]};
+  };
   // Begins the first product of backward trunk layer i.
   auto begin_bwd_layer = [&](int i) {
     Seg s[1];
@@ -568,7 +638,7 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   // product's closing wait covers it.
   if (a.bias_in_smem) {
     const int nvec = bias_elems(depth, W, RW) / 8;
-    for (int v = threadIdx.x; v < nvec; v += RTHREADS) {
+    for (int v = threadIdx.x; v < nvec; v += THREADS) {
       const int e = v * 8;
       const bf16* src = e < depth * W ? a.b[e / W] + e % W
                         : e < (depth + 1) * W ? a.bot_b + (e - depth * W)
@@ -581,12 +651,10 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   auto layer_bias = [&](int i) {
     return a.bias_in_smem ? bias_s + i * W : a.b[i];
   };
-  const bf16* bias_bot = a.bias_in_smem ? bias_s + depth * W : a.bot_b;
-  const bf16* bias_rh = a.bias_in_smem ? bias_s + (depth + 1) * W : a.rh_b;
-  load_tile<CPAD>(a.x + (size_t)grow * a.c_in, a.c_in, rows_valid, xs, LDX);
-  load_tile<HEAD>(a.g_rgb + (size_t)grow * OUT_COLS, OUT_COLS, rows_valid,
+  load_tile<CPAD, THREADS>(a.x + (size_t)grow * a.c_in, a.c_in, rows_valid, xs, LDX);
+  load_tile<HEAD, THREADS>(a.g_rgb + (size_t)grow * OUT_COLS, OUT_COLS, rows_valid,
                   gr_s, LDG);
-  load_tile<HEAD>(a.g_alpha + (size_t)grow * OUT_COLS, OUT_COLS, rows_valid,
+  load_tile<HEAD, THREADS>(a.g_alpha + (size_t)grow * OUT_COLS, OUT_COLS, rows_valid,
                   ga_s, LDG);
   fence_async();
   __syncthreads();
@@ -596,45 +664,60 @@ __global__ void __launch_bounds__(RTHREADS, 1)
 
   // ---- forward recompute, in place in b0, saving every activation.
   for (int i = 0; i < depth; ++i) {
-    Frag<W> acc;
+    Frag<W, MT> acc;
     acc.zero();
     {
       Seg s[2];
       fwd_layer(i, s);
       run<W, false, P>(acc, s, ring);
     }
-    if (i < last) {
-      Seg s[2];
-      fwd_layer(i + 1, s);
-      begin<W, false, P>(s, ring);
-    } else if (has_bt) {
-      begin<W, false, P>(bot, ring);
-    } else {
-      begin<RW, false, P>(yh, ring);
-    }
-    epi_act<W>(acc, layer_bias(i), nullptr, rows_valid, true, b0, LDB);
+    then<EARLY>(
+        [&] {
+          if (i < last) {
+            Seg s[2];
+            fwd_layer(i + 1, s);
+            begin<W, false, P>(s, ring);
+          } else if (has_bt) {
+            begin_with<W, false, P, 1>(bot_p, ring);
+          } else {
+            begin_with<RW, false, P, 1>(y_p, ring);
+          }
+        },
+        [&] {
+          epi_act<W>(acc, layer_bias(i), nullptr, rows_valid, true, b0,
+                     LDB);
+        });
     fence_async();
     __syncthreads();
     store_tile<W>(b0, LDB, a.ws_h[i] + lr * W);
   }
   if (has_bt) {
-    Frag<W> acc;
+    Frag<W, MT> acc;
     acc.zero();
-    run<W, false, P>(acc, bot, ring);
-    begin<RW, false, P>(yh, ring);
-    epi_act<W>(acc, bias_bot, nullptr, rows_valid, false, b1, LDB);
+    run_with<W, false, P, 1>(acc, bot_p, ring);
+    then<EARLY>([&] { begin_with<RW, false, P, 1>(y_p, ring); },
+                [&] {
+                  epi_act<W>(acc,
+                             a.bias_in_smem ? bias_s + depth * W : a.bot_b,
+                             nullptr, rows_valid, false, b1, LDB);
+                });
     fence_async();
     __syncthreads();
     store_tile<W>(b1, LDB, a.ws_bt + lr * W);
   }
   {  // y = relu(bt or h @ rh_w + rh_b + row_bias), into b0
-    Frag<RW> acc;
+    Frag<RW, MT> acc;
     acc.zero();
-    run<RW, false, P>(acc, yh, ring);
-    begin<RW, true, P>(gy_p, ring);
-    const bf16* rb =
-        a.row_bias != nullptr ? a.row_bias + (size_t)grow * RW : nullptr;
-    epi_act<RW>(acc, bias_rh, rb, rows_valid, true, b0, LDB);
+    run_with<RW, false, P, 1>(acc, y_p, ring);
+    then<EARLY>(
+        [&] { begin_with<RW, true, P, 1>(gy_p, ring); },
+        [&] {
+          epi_act<RW, true>(
+              acc, a.bias_in_smem ? bias_s + (depth + 1) * W : a.rh_b,
+              a.row_bias != nullptr ? a.row_bias + (size_t)grow * RW
+                                    : nullptr,
+              rows_valid, true, b0, LDB);
+        });
     fence_async();
     __syncthreads();
     store_tile<RW>(b0, LDB, a.ws_y + lr * RW);
@@ -643,27 +726,34 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   // ---- backward. gy = bf16(g_rgb @ rgb_logit^T), masked by y > 0, in
   // place over y; drb = gy in f32.
   {
-    Frag<RW> acc;
+    Frag<RW, MT> acc;
     acc.zero();
-    run<RW, true, P>(acc, gy_p, ring);
-    if (has_bt)
-      begin<W, true, P>(gbt_p, ring);
-    else
-      begin<W, true, P>(gh_p, ring);
-    epi_grad<RW>(acc, b0, LDB, b0, LDB,
-                 a.drb != nullptr ? a.drb + (size_t)grow * RW : nullptr,
-                 rows_valid);
+    run_with<RW, true, P, 1>(acc, gy_p, ring);
+    then<EARLY>(
+        [&] {
+          if (has_bt)
+            begin_with<W, true, P, 2>(gbt_p, ring);
+          else
+            begin_with<W, true, P, 3>(gh_p, ring);
+        },
+        [&] {
+          epi_grad<RW>(acc, b0, LDB, b0, LDB,
+                       a.drb != nullptr ? a.drb + (size_t)grow * RW
+                                        : nullptr,
+                       rows_valid);
+        });
     fence_async();
     __syncthreads();
     store_tile<RW>(b0, LDB, a.ws_gy + lr * RW);
   }
   // g_bt, into b1: the head input cotangents routed to the bottleneck.
   if (has_bt) {
-    Frag<W> acc;
+    Frag<W, MT> acc;
     acc.zero();
-    run<W, true, P>(acc, gbt_p, ring);
-    begin<W, true, P>(gh_p, ring);
-    epi_grad<W>(acc, nullptr, 0, b1, LDB, nullptr, rows_valid);
+    run_with<W, true, P, 2>(acc, gbt_p, ring);
+    then<EARLY>([&] { begin_with<W, true, P, 3>(gh_p, ring); },
+                [&] { epi_grad<W>(acc, nullptr, 0, b1, LDB, nullptr,
+                                  rows_valid); });
     fence_async();
     __syncthreads();
     store_tile<W>(b1, LDB, a.ws_gbt + lr * W);
@@ -673,49 +763,61 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   // With gy consumed (it fed g_bt), b0 receives the mask tile during the
   // product; otherwise the epilogue reads it from the workspace.
   {
-    Frag<W> acc;
+    Frag<W, MT> acc;
     acc.zero();
     const bf16* h_last = a.ws_h[last] + lr * W;
     const bool side = has_bt && rgb_bt;
-    run<W, true, P>(acc, gh_p, ring,
-                    side ? Side{h_last, W, b0, LDB, W} : Side{});
-    begin_bwd_layer(last);
-    epi_grad<W>(acc, side ? b0 : h_last, side ? LDB : W, b1, LDB, nullptr,
-                rows_valid);
+    run_with<W, true, P, 3>(
+        acc, gh_p, ring,
+        Side<W, LDB>{side ? h_last : nullptr, b0});
+    then<EARLY>([&] { begin_bwd_layer(last); },
+                [&] {
+                  epi_grad<W>(acc, side ? b0 : h_last, side ? LDB : W, b1,
+                              LDB, nullptr, rows_valid);
+                });
     fence_async();
     __syncthreads();
   }
   // The trunk, last layer first: b1 holds layer i's g_pre, b0 receives
-  // layer i - 1's activation for the next mask. dx = (skip product) +
-  // (layer-0 product).
-  float* dx = a.dx + (size_t)grow * a.c_in;
-  bool dx_written = false;
+  // layer i - 1's activation for the next mask. dx = (skip products) +
+  // (layer-0 product): a product adds to dx where a skip layer above it
+  // wrote first. (dx and that flag are made where used, not carried
+  // through the loop, for the registers.)
+  auto dx = [&] { return a.dx + (size_t)grow * a.c_in; };
+  auto dx_written = [&](int i) { return (a.skip_mask >> (i + 1)) != 0; };
   for (int i = last; i >= 0; --i) {
     store_tile<W>(b1, LDB, a.ws_gp[i] + lr * W);
     if (skip(i)) {
-      Frag<CPAD> acc;
+      Frag<CPAD, MT> acc;
       acc.zero();
       Seg s[1];
       bwd_dx_skip(i, s);
       run<CPAD, true, P>(acc, s, ring);
-      bwd_layer(i, s);
-      begin<W, true, P>(s, ring);
-      epi_f32<CPAD>(acc, dx, a.c_in, a.c_in, rows_valid, dx_written);
-      dx_written = true;
+      then<EARLY>(
+          [&] {
+            bwd_layer(i, s);
+            begin<W, true, P>(s, ring);
+          },
+          [&] {
+            epi_f32<CPAD>(acc, dx(), a.c_in, a.c_in, rows_valid,
+                          dx_written(i));
+          });
     }
     Seg s[1];
     bwd_layer(i, s);
     if (i == 0) {
-      Frag<CPAD> acc;
+      Frag<CPAD, MT> acc;
       acc.zero();
       run<CPAD, true, P>(acc, s, ring);
-      epi_f32<CPAD>(acc, dx, a.c_in, a.c_in, rows_valid, dx_written);
+      epi_f32<CPAD>(acc, dx(), a.c_in, a.c_in, rows_valid, dx_written(0));
     } else {
-      Frag<W> acc;
+      Frag<W, MT> acc;
       acc.zero();
-      run<W, true, P>(acc, s, ring, Side{a.ws_h[i - 1] + lr * W, W, b0, LDB, W});
-      begin_bwd_layer(i - 1);
-      epi_grad<W>(acc, b0, LDB, b1, LDB, nullptr, rows_valid);
+      run<W, true, P>(acc, s, ring,
+                      Side<W, LDB>{a.ws_h[i - 1] + lr * W, b0});
+      then<EARLY>([&] { begin_bwd_layer(i - 1); },
+                  [&] { epi_grad<W>(acc, b0, LDB, b1, LDB, nullptr,
+                                    rows_valid); });
       fence_async();
       __syncthreads();
     }
@@ -741,7 +843,7 @@ cudaError_t launch_bwd(NerfBwdArgs a, int device, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const int grid = (a.rows + RBM - 1) / RBM;
   nerf_bwd_rows_kernel<W, RW, KS, STAGES>
-      <<<grid, RTHREADS, smem, stream>>>(a);
+      <<<grid, threads_for(mtiles<W>()), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
