@@ -18,9 +18,10 @@ non-zero exit at the first phase that fails:
            0.05 on all but MAX_FLIPPED_ROWS_FRAC of the rows (ReLU mask
            flips, see below), each dW leaf by max|kernel - plain| <=
            DW_MAX_REL * max|plain|; each backward runs twice and must give
-           bit-identical dW (the reduction is deterministic). The NeRF
+           bit-identical dW (the reduction is deterministic). Each
            backward's row pass and weight-gradient pass are also timed on
-           their own.
+           their own, and the warp backward is checked and timed at the
+           fine level's rows too (no tangents).
   widths   hold the NeRF forward and backward against their plain versions,
            as above, at the other widths the kernels are built for
            (OTHER_NERF_WIDTHS), OTHER_WIDTH_ROWS rows.
@@ -269,7 +270,8 @@ def phase_build():
   seconds = time.perf_counter() - start
   print(f'build: {seconds:.2f} s, {path}')
   for line in _build.build_log().splitlines():
-    if 'registers' in line or 'spill' in line or ' s, exit' in line:
+    if ('registers' in line or 'spill' in line or ' s, exit' in line
+        or 'Compiling entry' in line):
       print(f'  {line.strip()}')
   return seconds
 
@@ -592,19 +594,29 @@ def phase_train_kernels(model, device, generator, device_name):
 
   go = randn(n, 8)
   gjs = [randn(n, 8) for _ in range(nt)]
-  args = (x, e, ts, warp_params, go, gjs)
   kw = dict(trunk_depth=warp_depth, skips=warp_skips)
-  # Compared with dx and d_tangents (need_dx); timed as the path runs it.
-  got = fused_warp.warp_mlp_backward(*args, **kw, need_dx=True)
-  again = fused_warp.warp_mlp_backward(*args, **kw, need_dx=True)
-  torch.cuda.synchronize()
-  want = fused_warp.warp_mlp_backward_reference(*args, **kw, need_dx=True)
-  err = _check_backward(f'warp_mlp_backward rows={n}',
-                        [got[0], got[1]] + got[2], [want[0], want[1]]
-                        + want[2], got[3], want[3])
-  _same_bits('warp_mlp_backward', got[3], again[3])
-  del got, again, want
-  results['warp_mlp_backward'] = report(
+  weight_bytes = 2 * sum(v.numel() for v in wops.values())
+
+  def check_warp_backward(args):
+    """Compared with dx and d_tangents (need_dx); dW twice, same bits."""
+    rows = args[0].shape[0]
+    got = fused_warp.warp_mlp_backward(*args, **kw, need_dx=True)
+    again = fused_warp.warp_mlp_backward(*args, **kw, need_dx=True)
+    torch.cuda.synchronize()
+    want = fused_warp.warp_mlp_backward_reference(*args, **kw, need_dx=True)
+    err = _check_backward(
+        f'warp_mlp_backward rows={rows} tangents={len(args[2])}',
+        [got[0], got[1]] + got[2], [want[0], want[1]] + want[2], got[3],
+        want[3])
+    _same_bits('warp_mlp_backward', got[3], again[3])
+    return err
+
+  # Timed as the path runs it (no dx). Bytes: the inputs and cotangents
+  # read, d_embed written, the weights read and dW written.
+  args = (x, e, ts, warp_params, go, gjs)
+  err = check_warp_backward(args)
+  io_bytes = nbytes(x, e, *ts, go, *gjs) + weight_bytes + n * f_embed * 4
+  results['warp_mlp_backward'] = entry = report(
       'warp_mlp_backward', n, err,
       time_ms(lambda: fused_warp.warp_mlp_backward(*args, **kw,
                                                    need_dx=False), reps=5),
@@ -612,9 +624,47 @@ def phase_train_kernels(model, device, generator, device_name):
           *args, **kw, need_dx=False), reps=3),
       time_ms(library_warp_backward(x, e, ts, wops, warp_depth, warp_skips,
                                     go, gjs), reps=5),
-      2 * warp_bwd_macs * n,
-      nbytes(x, e, *ts, go, *gjs) + 2 * sum(v.numel() for v in wops.values())
-      + n * f_embed * 4 + warp_param_bytes)
+      2 * warp_bwd_macs * n, io_bytes + warp_param_bytes)
+  # The two passes alone: the row pass (recompute and input cotangents)
+  # writes the workspace that the weight-gradient pass (dW) reads.
+  passes, _ = fused_warp._bwd_passes(x, e, ts, go, gjs, wops, warp_depth,
+                                     warp_skips, False)
+  ws_bytes = n * fused_warp.bwd_workspace_row_bytes(nt, width, warp_depth)
+  for part, index, flops, part_bytes in (
+      ('row_pass', 0, 2 * (warp_bwd_macs - warp_fwd_macs) * n,
+       io_bytes + ws_bytes),
+      ('weight_pass', 1, 2 * warp_fwd_macs * n,
+       ws_bytes + warp_param_bytes)):
+    part_ms = time_ms(lambda: [p[index]() for p in passes], reps=5)
+    part_bound, part_by = bound(flops, part_bytes)
+    print(f'    {part}: {part_ms:.3f} ms, bound {part_bound:.3f} ms '
+          f'({part_by}), {flops / part_ms / 1e9:.1f} TFLOP/s, '
+          f'{len(passes)} chunks')
+    entry.update({f'{part}_ms': part_ms, f'{part}_bound_ms': part_bound})
+  del passes, args, x, e, ts, go, gjs, pts
+
+  # The fine level's launch: no tangents, twice the rows.
+  n = fine
+  x = encoding.posenc(randn(n, 3), model.num_warp_freqs, alpha=WARP_ALPHA)
+  e = 0.05 * torch.rand(n, f_embed, generator=generator, device=device)
+  go = randn(n, 8)
+  args = (x, e, [], warp_params, go, [])
+  err = check_warp_backward(args)
+  entry['max_abs_err'] = max(err, entry['max_abs_err'])
+  fine_fwd_macs = chain_macs + embed_macs
+  fine_entry = report(
+      'warp_mlp_backward', n, err,
+      time_ms(lambda: fused_warp.warp_mlp_backward(*args, **kw,
+                                                   need_dx=False), reps=5),
+      time_ms(lambda: fused_warp.warp_mlp_backward_reference(
+          *args, **kw, need_dx=False), reps=3),
+      time_ms(library_warp_backward(x, e, [], wops, warp_depth, warp_skips,
+                                    go, []), reps=5),
+      2 * (2 * fine_fwd_macs + data_macs + embed_macs) * n,
+      nbytes(x, e, go) + weight_bytes + n * f_embed * 4 + warp_param_bytes)
+  entry.update(fine_rows=n, fine_rows_ms=fine_entry['ms'],
+               fine_library_ms=fine_entry['library_ms'],
+               fine_bound_ms=fine_entry['bound_ms'])
   return results
 
 
@@ -952,7 +1002,7 @@ def main(argv=None):
                             'nerfies_tpu/ops/fused_mlp.py:432'),
       'warp_mlp_forward': ('nerfies_tpu_torch/csrc/fused_warp.cu',
                            'nerfies_tpu/ops/fused_warp.py:147'),
-      'warp_mlp_backward': ('nerfies_tpu_torch/csrc/fused_warp.cu',
+      'warp_mlp_backward': ('nerfies_tpu_torch/csrc/fused_warp_bwd.cu',
                             'nerfies_tpu/ops/fused_warp.py:207'),
   }
   lines = []
@@ -968,7 +1018,9 @@ def main(argv=None):
         'bound_by': k['bound_by'], 'library_ms': k['library_ms'],
         'rows': k['rows'],
         **{key: k[key] for key in ('row_pass_ms', 'row_pass_bound_ms',
-                                   'weight_pass_ms', 'weight_pass_bound_ms')
+                                   'weight_pass_ms', 'weight_pass_bound_ms',
+                                   'fine_rows', 'fine_rows_ms',
+                                   'fine_library_ms', 'fine_bound_ms')
            if key in k}})
   print(f'total: {time.perf_counter() - total:.2f} s '
         f'(build {build_seconds:.2f} s)')

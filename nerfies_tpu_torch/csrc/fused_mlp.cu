@@ -116,7 +116,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) nerf_mlp_kernel(const __grid_cons
 
   const int row0 = blockIdx.x * BM;
   const int rows_valid = min(BM, a.n - row0);
-  load_tile<CPAD>(a.x, a.c_in, row0, rows_valid, xs, LDX, nullptr);
+  load_tile<CPAD>(a.x, a.c_in, row0, rows_valid, xs, LDX);
   bf16* h = trunk<W, LDH>(a.w, a.wx, a.b, nullptr, a.depth, a.skip_mask,
                           row0, rows_valid, xs, h0, h1, w_s, scratch);
   bf16* other = (h == h0) ? h1 : h0;
@@ -186,7 +186,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) warp_trunk_kernel(const __grid_co
 
   const int row0 = blockIdx.x * BM;
   const int rows_valid = min(BM, a.n - row0);
-  load_tile<CPAD>(a.x, a.c_in, row0, rows_valid, xs, LDX, nullptr);
+  load_tile<CPAD>(a.x, a.c_in, row0, rows_valid, xs, LDX);
   bf16* h = trunk<W>(a.w, a.wx, a.b, a.rb, a.depth, a.skip_mask, row0,
                      rows_valid, xs, h0, h1, w_s, scratch);
   Acc<HEAD> acc;

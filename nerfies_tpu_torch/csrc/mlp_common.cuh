@@ -1,16 +1,16 @@
-// Building blocks shared by the fused MLP kernels (fused_mlp.cu,
-// fused_warp.cu): row tiles in shared memory, weight
-// slices streamed from L2, nvcuda::wmma bf16 products with f32
-// accumulators, and the epilogues that round to bf16 or write f32.
+// Building blocks of the forward kernels (fused_mlp.cu: the NeRF MLP and
+// the serving warp trunk; fused_warp.cu: the training warp trunk's primal
+// and tangent chains): row tiles in shared memory, weight slices streamed
+// from L2, nvcuda::wmma bf16 products with f32 accumulators, and the
+// epilogues that round to bf16 or write f32 head outputs. The backward row
+// passes use row_pass.cuh instead.
 //
 // Layout conventions. A block of NTHREADS = 256 threads (8 warps) owns BM =
 // 64 rows. Warp w owns the 16 rows 16*(w%4) .. +16 of every product and the
 // 16-column tiles w/4, w/4 + 2, ... of its output. Activation tiles live in
 // shared memory with SPAD elements of padding per row; weights are
-// row-major (Flax's (in, out) layout) in global memory. A product whose
-// weight is used transposed is given the transposed copy, made once per
-// call by the wrapper, so that every product here streams a row-major
-// weight.
+// row-major (Flax's (in, out) layout) in global memory, and every product
+// here streams them as they are.
 //
 // Everything below the includes lies in an anonymous namespace, so each
 // file that includes this header has its own copy with internal linkage.
@@ -131,13 +131,12 @@ __device__ void accumulate_chains(Acc<N> (&acc)[C],
 }
 
 // out[BM x N] (shared, bf16) = act(acc + row_bias + bias). row_bias is the
-// block's first row in global memory (row stride N) or null. ws, if not
-// null, is the block's first row of a global copy (row stride N).
+// block's first row in global memory (row stride N) or null.
 template <int N>
 __device__ void epilogue_bf16(Acc<N>& acc, const bf16* __restrict__ bias,
                               const bf16* __restrict__ row_bias,
                               int rows_valid, bool relu, bf16* out, int ldo,
-                              float* scratch, bf16* ws = nullptr) {
+                              float* scratch) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = warp & 3, cg = warp >> 2;
   float* s = scratch + warp * 256;
@@ -154,9 +153,7 @@ __device__ void epilogue_bf16(Acc<N>& acc, const bf16* __restrict__ bias,
           v += __bfloat162float(row_bias[(size_t)r * N + c]);
         v += __bfloat162float(bias[c]);
         if (relu) v = fmaxf(v, 0.0f);
-        const bf16 h = __float2bfloat16(v);
-        out[r * ldo + c] = h;
-        if (ws != nullptr) ws[(size_t)r * N + c] = h;
+        out[r * ldo + c] = __float2bfloat16(v);
       }
       __syncwarp();
     }
@@ -184,84 +181,16 @@ __device__ void epilogue_head(Acc<HEAD>& acc, const bf16* __restrict__ bias,
   __syncwarp();
 }
 
-// A cotangent product rounded to bf16, with an optional ReLU mask:
-//   v = bf16(acc), zeroed where mask <= 0 (mask: the layer's bf16
-//   activation, the block's first row in global memory, row stride N).
-// v goes to shared memory (out, may be null), to a global copy (ws, row
-// stride N, may be null) and as f32 to f32_out (row stride N, valid rows
-// only, may be null).
-template <int N>
-__device__ void epilogue_grad(Acc<N>& acc, const bf16* __restrict__ mask,
-                              bf16* out, int ldo, bf16* ws,
-                              float* __restrict__ f32_out, int rows_valid,
-                              float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp & 3, cg = warp >> 2;
-  float* s = scratch + warp * 256;
-#pragma unroll
-  for (int j = 0; j < Acc<N>::PER_WARP; ++j) {
-    const int t = cg + 2 * j;
-    if (t < Acc<N>::TILES) {
-      wmma::store_matrix_sync(s, acc.f[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rg * 16 + (e >> 4), c = t * 16 + (e & 15);
-        bf16 v = __float2bfloat16(s[e]);
-        if (mask != nullptr &&
-            !(__bfloat162float(mask[(size_t)r * N + c]) > 0.0f))
-          v = __float2bfloat16(0.0f);
-        if (out != nullptr) out[r * ldo + c] = v;
-        if (ws != nullptr) ws[(size_t)r * N + c] = v;
-        if (f32_out != nullptr && r < rows_valid)
-          f32_out[(size_t)r * N + c] = __bfloat162float(v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// out[r, c] (global f32, row stride ld) = (add ? out[r, c] : 0) + acc for
-// the valid rows and the first ncols columns. The same thread writes and
-// later re-reads each element, so an `add` pass needs no barrier.
-template <int N>
-__device__ void epilogue_f32(Acc<N>& acc, float* __restrict__ out, int ld,
-                             int ncols, int rows_valid, bool add,
-                             float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp & 3, cg = warp >> 2;
-  float* s = scratch + warp * 256;
-#pragma unroll
-  for (int j = 0; j < Acc<N>::PER_WARP; ++j) {
-    const int t = cg + 2 * j;
-    if (t < Acc<N>::TILES) {
-      wmma::store_matrix_sync(s, acc.f[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rg * 16 + (e >> 4), c = t * 16 + (e & 15);
-        if (c < ncols && r < rows_valid) {
-          float* p = out + (size_t)r * ld + c;
-          *p = (add ? *p : 0.0f) + s[e];
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
 // src rows row0 .. row0 + BM (global f32, row stride c_src) -> a bf16 tile
-// of COLS zero-padded columns in shared memory (row stride ld), and, if ws
-// is not null, the same tile to global memory (the block's first row,
-// row stride COLS).
+// of COLS zero-padded columns in shared memory (row stride ld).
 template <int COLS>
 __device__ void load_tile(const float* __restrict__ src, int c_src, int row0,
-                          int rows_valid, bf16* dst, int ld, bf16* ws) {
+                          int rows_valid, bf16* dst, int ld) {
   for (int e = threadIdx.x; e < BM * COLS; e += NTHREADS) {
     const int r = e / COLS, c = e % COLS;
     float v = 0.0f;
     if (r < rows_valid && c < c_src) v = src[(size_t)(row0 + r) * c_src + c];
-    const bf16 h = __float2bfloat16(v);
-    dst[r * ld + c] = h;
-    if (ws != nullptr) ws[(size_t)r * COLS + c] = h;
+    dst[r * ld + c] = __float2bfloat16(v);
   }
 }
 

@@ -10,8 +10,8 @@ embedding enters as an (N, F) operand at layer 0 and at each skip (the
 SplitDense rows [prev | pe | embed]).
 
 On a CUDA tensor `warp_mlp_forward` and `warp_mlp_backward` launch the
-hand-written kernels of csrc/fused_warp.cu (the backward with
-csrc/weight_grad.cu) and count their launches; on a CPU tensor they run
+hand-written kernels of csrc/fused_warp.cu and of csrc/fused_warp_bwd.cu
+with csrc/weight_grad.cu, and count their launches; on a CPU tensor they run
 the plain versions, which keep the kernels' rounding points: bf16
 operands, f32 sums with the bias added in f32, the forward's mask from the
 primal's f32 pre-activation and the backward's from its bf16 activation
@@ -31,7 +31,7 @@ background points carry no parameter dependence, so the port skips the
 """
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -45,10 +45,42 @@ from nerfies_tpu_torch.ops.fused_mlp import (_HEAD_PAD, _MAX_DEPTH, _OUT_COLS,
 
 _WIDTHS = (128,)
 _TANGENTS = (0, 3)
-# Rows per pass of the backward kernel: with 3 tangents the workspace
-# holds 12,960 bytes per row at the bench widths, so 1.7 GB for a chunk of
-# 131,072 rows.
-_WARP_BWD_CHUNK = 131072
+# Workspace bytes per chunk of the backward: 131,072 rows with 3 tangents
+# at the bench widths (12,960 bytes a row), 1.7 GB.
+_WARP_BWD_BUDGET = 131072 * 12960
+# Rows per block of the backward's row pass (csrc/fused_warp_bwd.cu), all
+# chains stacked.
+_WARP_BWD_TILE = 128
+
+
+def bwd_tile_rows(nt: int) -> int:
+  """Rows of each chain that one block of the backward's row pass owns."""
+  return _WARP_BWD_TILE // (nt + 1)
+
+
+def bwd_workspace_row_bytes(nt: int, width: int, depth: int) -> int:
+  """Workspace bytes per row of the backward with nt tangents: every
+  chain's input and head cotangents and its activation and pre-activation
+  cotangent per layer, and the primal's embedding, all bf16."""
+  chains = nt + 1
+  return 2 * (chains * (_PE_PAD + _HEAD_PAD + 2 * depth * width) + _HEAD_PAD)
+
+
+def bwd_chunk_rows(nt: int, width: int, depth: int,
+                   budget: int = _WARP_BWD_BUDGET) -> int:
+  """Most rows per chunk of the backward whose workspace fits in `budget`
+  bytes: a multiple of the row pass's rows per chain and block."""
+  tile = bwd_tile_rows(nt)
+  rows = budget // bwd_workspace_row_bytes(nt, width, depth) // tile * tile
+  return max(tile, rows)
+
+
+def bwd_chunks(n: int, most: int):
+  """[(row0, rows)]: n rows in the fewest chunks of at most `most` rows,
+  of equal size but for the last."""
+  count = -(-n // most)
+  size = -(-n // count)
+  return [(row0, min(size, n - row0)) for row0 in range(0, n, size)]
 
 
 def pack(params: dict, c_in: int, f_embed: int, trunk_depth: int,
@@ -79,10 +111,6 @@ def pack(params: dict, c_in: int, f_embed: int, trunk_depth: int,
   ops['wh'] = _bf16(_pad_cols(head['kernel'], _OUT_COLS))
   ops['bh'] = _bf16(_pad_cols(head['bias'], _OUT_COLS))
   return ops
-
-
-def _transposed(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-  return None if t is None else t.t().contiguous()
 
 
 def _is_skip(i, skips):
@@ -268,8 +296,16 @@ def _launch_fwd(x, e, tangents, ops, trunk_depth, skips):
   return out, jouts
 
 
-def _launch_bwd(x, e, tangents, g_out, g_jouts, ops, trunk_depth, skips,
-                need_dx, chunk=_WARP_BWD_CHUNK):
+def _bwd_passes(x, e, tangents, g_out, g_jouts, ops, trunk_depth, skips,
+                need_dx, chunk=None):
+  """The checks, outputs and workspace of one kernel backward.
+
+  Chunks of at most `chunk` rows (by default as many as bwd_chunk_rows
+  allows). Returns (passes, finish): one (row_pass, weight_pass) pair of
+  callables per chunk, each launching its kernel on the current stream and
+  to be called in order; finish() gives (d_embed, dx, d_tangents, {name:
+  dW}) after all.
+  """
   name = 'warp_mlp_backward'
   _check_inputs(name, x, e, tangents, ops, trunk_depth)
   n, c_in = x.shape
@@ -282,21 +318,21 @@ def _launch_bwd(x, e, tangents, g_out, g_jouts, ops, trunk_depth, skips,
     if g.device != device or tuple(g.shape) != (n, _OUT_COLS):
       raise ValueError(f'{name}: cotangents must be ({n}, {_OUT_COLS}) on '
                        f'{device}')
+  # The kernel reads every weight in its (in, out) layout, also where it
+  # multiplies by the transpose: no transposed copies.
   w, wx, we, b, head = _kernel_weights(ops, trunk_depth, skips)
-  wt = [_transposed(t) for t in w]
-  wxt = [_transposed(t) for t in wx]
-  wet = [_transposed(t) for t in we]
-  head_wt = _transposed(head[0])
-  weights = w + wx + we + b + head
-  _check_operands([t for t in weights + wt + wxt + wet + [head_wt]
-                   if t is not None], device, name)
+  weights = w + wx + we + b + head[:1]
+  _check_operands([t for t in weights if t is not None], device, name)
   x, e = _f32(x), _f32(e)
   ts = [_f32(t) for t in tangents] + [None] * (3 - nt)
   g_out = _f32(g_out)
   gjs = [_f32(g) for g in g_jouts] + [None] * (3 - nt)
 
-  rows_alloc = min(-(-n // 64) * 64, chunk)
   depth = trunk_depth
+  tile = bwd_tile_rows(nt)
+  chunks = bwd_chunks(n, chunk or bwd_chunk_rows(nt, width, depth))
+  # Each chunk's row pass writes whole tiles: rows rounded up to the tile.
+  rows_alloc = -(-chunks[0][1] // tile) * tile
   stacked = chains * rows_alloc
   shapes = ([(stacked, _PE_PAD), (rows_alloc, _HEAD_PAD)]
             + [(stacked, width)] * depth + [(stacked, _HEAD_PAD)]
@@ -331,34 +367,54 @@ def _launch_bwd(x, e, tangents, g_out, g_jouts, ops, trunk_depth, skips,
     dts = [torch.empty_like(dx) for _ in range(nt)]
   pad = [None] * (_MAX_DEPTH - depth)
   ptrs = _pointer_array(
-      [x, e] + ts + [None] * 4 + weights + [g_out] + gjs + [d_embed, dx]
-      + (dts or []) + [None] * (3 - len(dts or [])) + wt + wxt + wet
-      + [head_wt, ws_in, ws_e] + ws_h + pad + [ws_gh] + ws_gp + pad)
+      [x, e] + ts + [g_out] + gjs + [d_embed, dx] + (dts or [])
+      + [None] * (3 - len(dts or [])) + weights + [ws_in, ws_e] + ws_h + pad
+      + [ws_gh] + ws_gp + pad)
   skip_mask = sum(1 << i for i in range(depth) if _is_skip(i, skips))
   lib = _build.load()
   stream = torch.cuda.current_stream(device).cuda_stream
-  for row0 in range(0, n, rows_alloc):
-    rows = min(rows_alloc, n - row0)
-    rows_chunk = -(-rows // 64) * 64  # the chains' stride in this chunk
-    rc = lib.warp_train_backward_rows(
-        ctypes.addressof(ptrs), n, row0, rows, rows_chunk, c_in, f_embed,
-        depth, skip_mask, nt, int(need_dx), width, device.index or 0, stream)
-    _check_launch(lib, rc, name)
-    grads.run(lib,
-              lambda j: rows_chunk * (chains if j['name'] in chained else 1),
-              lambda j: rows_chunk, partial, flat, row0 > 0, device, stream)
-  warp_mlp_backward.launches += 1
 
-  dws = grads.views(flat)
-  dws['w0'] = dws['w0'][:c_in]
-  for key in list(dws):
-    if key.startswith('wx'):
-      dws[key] = dws[key][:c_in]
-    elif key.startswith('we'):
-      dws[key] = dws[key][:f_embed]
-  dws['wh'] = dws['wh'][:, :_OUT_COLS]
-  dws['bh'] = dws['bh'][:_OUT_COLS]
-  return d_embed, dx, dts, dws
+  def rows_chunk(rows):  # the chains' stride in a chunk's workspace
+    return -(-rows // tile) * tile
+
+  def row_pass(row0, rows):
+    rc = lib.warp_train_backward_rows(
+        ctypes.addressof(ptrs), n, row0, rows, rows_chunk(rows), c_in,
+        f_embed, depth, skip_mask, nt, int(need_dx), width,
+        device.index or 0, stream)
+    _check_launch(lib, rc, name)
+
+  def weight_pass(row0, rows):
+    stride = rows_chunk(rows)
+    grads.run(lib, lambda j: stride * (chains if j['name'] in chained else 1),
+              lambda j: stride, partial, flat, row0 > 0, device, stream)
+
+  def finish():
+    dws = grads.views(flat)
+    dws['w0'] = dws['w0'][:c_in]
+    for key in list(dws):
+      if key.startswith('wx'):
+        dws[key] = dws[key][:c_in]
+      elif key.startswith('we'):
+        dws[key] = dws[key][:f_embed]
+    dws['wh'] = dws['wh'][:, :_OUT_COLS]
+    dws['bh'] = dws['bh'][:_OUT_COLS]
+    return d_embed, dx, dts, dws
+
+  passes = [(lambda c=c: row_pass(*c), lambda c=c: weight_pass(*c))
+            for c in chunks]
+  return passes, finish
+
+
+def _launch_bwd(x, e, tangents, g_out, g_jouts, ops, trunk_depth, skips,
+                need_dx, chunk=None):
+  passes, finish = _bwd_passes(x, e, tangents, g_out, g_jouts, ops,
+                               trunk_depth, skips, need_dx, chunk)
+  for row_pass, weight_pass in passes:
+    row_pass()
+    weight_pass()
+  warp_mlp_backward.launches += 1
+  return finish()
 
 
 # ---------------------------------------------------------------- wrappers

@@ -212,3 +212,80 @@ def test_dx_matches_jax_through_points():
                                _WARP_EXTRA)
   got, = torch.autograd.grad((out['warped_points'] ** 2).mean(), tp)
   grad_check({'p': got}, {'p': want}, 'd_points', cos_floor=0.99)
+
+
+# The backward's chunks (ops/fused_warp.py bwd_chunk_rows, bwd_chunks): the
+# kernel's workspace is sized by bytes, so a chunk holds ~4x the rows
+# without tangents that it holds with 3; the row splits must not change
+# the result.
+@pytest.mark.parametrize('nt', [0, 3])
+@pytest.mark.parametrize('depth', [6, 3])  # the bench trunk, this file's
+def test_bwd_chunk_rows_fill_the_byte_budget(nt, depth):
+  budget = fused_warp._WARP_BWD_BUDGET
+  tile = fused_warp.bwd_tile_rows(nt)
+  rows = fused_warp.bwd_chunk_rows(nt, 128, depth)
+  row_bytes = fused_warp.bwd_workspace_row_bytes(nt, 128, depth)
+  assert rows % tile == 0
+  assert rows * row_bytes <= budget < (rows + tile) * row_bytes
+  with_3 = fused_warp.bwd_chunk_rows(3, 128, depth)
+  if depth == 6:
+    assert (fused_warp.bwd_workspace_row_bytes(3, 128, 6), with_3) == (
+        12960, 131072)
+  if nt == 0:
+    assert rows > 3.5 * with_3
+
+
+@pytest.mark.parametrize('n, nt, chunks', [
+    (786432, 3, 6),     # the bench step's coarse level: 131,072 rows each
+    (1572864, 0, 4),    # its fine level: 12 chunks by rows, 4 by bytes
+    (16384, 0, 1),      # its background points
+    (1, 3, 1)])
+def test_bwd_chunks_cover_the_rows_once(n, nt, chunks):
+  most = fused_warp.bwd_chunk_rows(nt, 128, 6)
+  plan = fused_warp.bwd_chunks(n, most)
+  assert len(plan) == chunks
+  assert [r0 for r0, _ in plan] == list(
+      np.cumsum([0] + [r for _, r in plan[:-1]]))
+  assert sum(r for _, r in plan) == n
+  assert all(0 < r <= most for _, r in plan)
+  assert max(r for _, r in plan) - min(r for _, r in plan) <= 1 or chunks == 1
+
+
+@pytest.mark.parametrize('nt', [0, 3])
+@pytest.mark.parametrize('need_dx', [False, True])
+def test_plain_backward_over_chunks_equals_whole(nt, need_dx):
+  """The plain backward over the kernel's chunk plan (a small budget, so
+  that chunk seams fall inside the row pass's blocks) equals it unchunked:
+  per-row outputs row for row, dW as the sum of the chunks' dW."""
+  params = _torch_tree(_kernel_params(4))
+  x, e, ts = _kernel_inputs(n=300, nt=nt, seed=4)
+  rng = np.random.RandomState(5)
+  g_out = rng.normal(size=(300, 8)).astype(np.float32)
+  g_jouts = [rng.normal(size=(300, 8)).astype(np.float32) for _ in ts]
+  ops = fused_warp.pack(params, x.shape[1], e.shape[1], 3, _SKIPS)
+  budget = 100 * fused_warp.bwd_workspace_row_bytes(nt, 128, 3)
+  plan = fused_warp.bwd_chunks(
+      300, fused_warp.bwd_chunk_rows(nt, 128, 3, budget=budget))
+  assert len(plan) > 1
+
+  def run(rows):
+    part = lambda a: torch.from_numpy(a[rows])
+    return fused_warp._plain_bwd(
+        part(x), part(e), [part(t) for t in ts], part(g_out),
+        [part(g) for g in g_jouts], ops, 3, _SKIPS, need_dx)
+
+  whole = run(slice(None))
+  parts = [run(slice(r0, r0 + r)) for r0, r in plan]
+  torch.testing.assert_close(torch.cat([p[0] for p in parts]), whole[0],
+                             atol=1e-6, rtol=1e-5)
+  if need_dx:
+    torch.testing.assert_close(torch.cat([p[1] for p in parts]), whole[1],
+                               atol=1e-6, rtol=1e-5)
+    for j in range(nt):
+      torch.testing.assert_close(torch.cat([p[2][j] for p in parts]),
+                                 whole[2][j], atol=1e-6, rtol=1e-5)
+  else:
+    assert all(p[1] is None and p[2] is None for p in parts)
+  for name, want in whole[3].items():
+    got = sum(p[3][name] for p in parts)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)

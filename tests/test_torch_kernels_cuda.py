@@ -213,27 +213,16 @@ def test_warp_forward_kernel_matches_plain_on_card(cuda_device, n, nt):
     _assert_rows_close(got_j, want_j)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 64, 4099])
-@pytest.mark.parametrize('nt', [0, 3])
-@pytest.mark.parametrize('need_dx', [False, True])
-def test_warp_backward_kernel_matches_plain_on_card(cuda_device, n, nt,
-                                                    need_dx):
-  g = torch.Generator().manual_seed(n + nt)
-  params = _bench_warp(g, cuda_device)
-  x = torch.randn(n, 39, generator=g).to(cuda_device)
-  e = torch.rand(n, 8, generator=g).to(cuda_device)
-  ts = [torch.randn(n, 39, generator=g).to(cuda_device) for _ in range(nt)]
-  go = torch.randn(n, 8, generator=g).to(cuda_device)
-  gjs = [torch.randn(n, 8, generator=g).to(cuda_device) for _ in range(nt)]
-  before = fused_warp.warp_mlp_backward.launches
-  got = fused_warp.warp_mlp_backward(x, e, ts, params, go, gjs,
-                                     trunk_depth=6, skips=(4,),
-                                     need_dx=need_dx)
-  torch.cuda.synchronize()
-  assert fused_warp.warp_mlp_backward.launches == before + 1
-  want = fused_warp.warp_mlp_backward_reference(
-      x, e, ts, params, go, gjs, trunk_depth=6, skips=(4,), need_dx=need_dx)
+def _warp_inputs(generator, device, n, nt):
+  x = torch.randn(n, 39, generator=generator).to(device)
+  e = torch.rand(n, 8, generator=generator).to(device)
+  ts = [torch.randn(n, 39, generator=generator).to(device) for _ in range(nt)]
+  go = torch.randn(n, 8, generator=generator).to(device)
+  gjs = [torch.randn(n, 8, generator=generator).to(device) for _ in range(nt)]
+  return x, e, ts, go, gjs
+
+
+def _assert_warp_backward_close(got, want, need_dx):
   _assert_rows_close(got[0], want[0])
   if need_dx:
     _assert_rows_close(got[1], want[1])
@@ -242,6 +231,60 @@ def test_warp_backward_kernel_matches_plain_on_card(cuda_device, n, nt,
   else:
     assert got[1] is None and got[2] is None
   _assert_dw_close(got[3], want[3])
+
+
+# The row pass's block owns 128 rows with no tangents and 32 of each chain
+# with 3: 31, 100 and 129 fall inside a block, 31 and 100 below one.
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 31, 64, 100, 129, 4099])
+@pytest.mark.parametrize('nt', [0, 3])
+@pytest.mark.parametrize('need_dx', [False, True])
+def test_warp_backward_kernel_matches_plain_on_card(cuda_device, n, nt,
+                                                    need_dx):
+  g = torch.Generator().manual_seed(n + nt)
+  params = _bench_warp(g, cuda_device)
+  x, e, ts, go, gjs = _warp_inputs(g, cuda_device, n, nt)
+  before = fused_warp.warp_mlp_backward.launches
+  got = fused_warp.warp_mlp_backward(x, e, ts, params, go, gjs,
+                                     trunk_depth=6, skips=(4,),
+                                     need_dx=need_dx)
+  torch.cuda.synchronize()
+  assert fused_warp.warp_mlp_backward.launches == before + 1
+  want = fused_warp.warp_mlp_backward_reference(
+      x, e, ts, params, go, gjs, trunk_depth=6, skips=(4,), need_dx=need_dx)
+  _assert_warp_backward_close(got, want, need_dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nt', [0, 3])
+@pytest.mark.parametrize('need_dx', [False, True])
+def test_warp_backward_chunk_boundary_inside_a_block_on_card(cuda_device, nt,
+                                                             need_dx):
+  """Chunks of 1000 rows: each boundary falls inside a block of rows."""
+  g = torch.Generator().manual_seed(13 + nt)
+  params = _bench_warp(g, cuda_device)
+  n = 2900
+  x, e, ts, go, gjs = _warp_inputs(g, cuda_device, n, nt)
+  ops = fused_warp.pack(params, 39, 8, 6, (4,))
+  assert [r for _, r in fused_warp.bwd_chunks(n, 1000)] == [967, 967, 966]
+  got = fused_warp._launch_bwd(x, e, ts, go, gjs, ops, 6, (4,), need_dx,
+                               chunk=1000)
+  whole = fused_warp._launch_bwd(x, e, ts, go, gjs, ops, 6, (4,), need_dx)
+  torch.cuda.synchronize()
+  # The rows' outputs do not depend on the chunks; dW sums in other order.
+  torch.testing.assert_close(got[0], whole[0], atol=0, rtol=0)
+  if need_dx:
+    torch.testing.assert_close(got[1], whole[1], atol=0, rtol=0)
+    for got_t, whole_t in zip(got[2], whole[2]):
+      torch.testing.assert_close(got_t, whole_t, atol=0, rtol=0)
+  for name in whole[3]:
+    torch.testing.assert_close(got[3][name], whole[3][name], atol=1e-3,
+                               rtol=1e-3)
+  want = fused_warp.warp_mlp_backward_reference(
+      x, e, ts, params, go, gjs, trunk_depth=6, skips=(4,), need_dx=need_dx)
+  _assert_warp_backward_close(
+      got[:3] + (fused_warp.grads_to_tree(got[3], params, 6, (4,)),), want,
+      need_dx)
 
 
 @pytest.mark.cuda
