@@ -27,7 +27,7 @@
 // bytes, and the workspace write above all. With 0 tangents the workspace
 // is 3,264 bytes a row.
 //
-// Design: PR 7's product engine (row_pass.cuh) with the chains stacked in
+// Design: the NeRF backward's product engine (row_pass.cuh), chains stacked in
 // one 128-row tile. A block owns RC = 128 / C rows of each of its C
 // chains (C = 1 or 4), stacked so that a warp's MT m16 tiles hold the same
 // 16 rows of every chain in turn: m-tile mt belongs to chain mt % C. So:
@@ -44,12 +44,16 @@
 //   whole pass;
 // - the embedding is an ordinary k = 16 term whose A tile is zero in the
 //   tangents' rows, and the biases and d_embed touch the primal's m-tiles
-//   only.
+//   only;
+// - every tile leaves for the workspace as bulk copies, one per row, each
+//   to its chain's offset, while the block goes on; nothing reads the
+//   workspace back, so a product waits only until the copies have read
+//   b0, not until their writes land.
 // C = 1 (the fine level, the background): 16 warps of 32 rows (MT = 2), as
 // the NeRF row pass at width 128. C = 4 (the coarse level): 8 warps of 64
-// stacked rows (MT = 4, one m16 tile per chain), 64 accumulators a thread.
-// Every tile leaves for the workspace as bulk copies, one per row, each to
-// its chain's offset, while the block goes on.
+// stacked rows (MT = 4, one m16 tile per chain), 64 accumulators a thread;
+// 16 warps of 2 m-tiles, handing the primal's mask between warps through
+// shared memory, ran slower.
 
 #include "row_pass.cuh"
 
@@ -64,18 +68,18 @@ template <int C>
 __host__ __device__ constexpr int warp_mtiles() { return C == 1 ? 2 : C; }
 
 // The stacking of C chains in an RBM-row tile whose warps own MT m16 tiles
-// each: stacked row s holds chain chain(s)'s local row local(s).
+// each: stacked 16-row group q holds chain q % C's local rows (q / C) * 16
+// .. + 16, so a warp's m-tile mt belongs to chain mt % C, and the C m-tiles
+// p * C .. + C hold the same rows of every chain.
 template <int C, int MT>
 struct Chains {
   static_assert(MT % C == 0, "a warp's m-tiles cover every chain alike");
   static constexpr int RC = RBM / C;  // rows of each chain
   __device__ static int chain(int s) { return (s >> 4) % C; }
-  __device__ static int local(int s) {
-    return s / (MT * 16) * (MT / C) * 16 + (s >> 4) % MT / C * 16 + (s & 15);
-  }
+  __device__ static int local(int s) { return (s >> 4) / C * 16 + (s & 15); }
   // The local row of this warp's first m-tile of each chain.
   __device__ static int warp_local0() {
-    return Frag<16, MT>::row0() / (MT * 16) * (MT / C) * 16;
+    return (Frag<16, MT>::row0() >> 4) / C * 16;
   }
 };
 
@@ -283,7 +287,9 @@ __global__ void __launch_bounds__(threads_for(warp_mtiles<C>()), 1)
   using Ch = Chains<C, MT>;
   constexpr int RC = Ch::RC;
   constexpr int LDB = W + RPAD;
-  using P = Pipe<WKS, WSTAGES, ring_stage<W, WKS>()>;
+  // Nothing reads the workspace back: a product waits only until the bulk
+  // stores have read b0, not until they complete.
+  using P = Pipe<WKS, WSTAGES, ring_stage<W, WKS>(), false>;
   // A product's first slices are issued before the previous product's
   // epilogue, to land while it runs.
   constexpr bool EARLY = true;

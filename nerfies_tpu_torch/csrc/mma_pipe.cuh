@@ -73,6 +73,13 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// Waits until this thread's bulk copies have read their shared-memory
+// sources, which may then be overwritten; their global writes may still
+// be in flight.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Orders this thread's earlier shared-memory writes before later reads of
 // the copy engine (the async proxy); a barrier must follow.
 __device__ __forceinline__ void fence_async() {

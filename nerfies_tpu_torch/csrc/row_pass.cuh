@@ -60,12 +60,16 @@ struct Frag {
 };
 
 // The weight ring: STAGES stages of STAGE bf16 elements, each holding KS
-// rows (k) of a weight slice.
-template <int KS_, int STAGES_, int STAGE_>
+// rows (k) of a weight slice. READS_BACK: the kernel reads workspace rows
+// that its own bulk stores wrote (a side copy does), so a product waits
+// for those stores to complete; otherwise only for them to have read
+// their shared-memory tiles, which is much sooner.
+template <int KS_, int STAGES_, int STAGE_, bool READS_BACK_ = true>
 struct Pipe {
   static constexpr int KS = KS_;
   static constexpr int STAGES = STAGES_;
   static constexpr int STAGE = STAGE_;
+  static constexpr bool READS_BACK = READS_BACK_;
 };
 
 // A tile that a product copies into shared memory beside its weight
@@ -167,7 +171,8 @@ __device__ void begin(const Seg (&s)[NSEG], bf16* ring) {
 // through a ring of P::STAGES cp.async stages, one barrier per slice; the
 // side copy, if any, is spread over the slices. It ends with a barrier,
 // after which the ring, every A and the side copy's tile may be written or
-// read by any thread, and this block's bulk stores are complete.
+// read by any thread, and this block's bulk stores have read their tiles
+// (with P::READS_BACK, are complete and visible to its reads).
 template <int N, bool TRANS, class P, int NSEG, int MT, class S = NoSide>
 __device__ void run(Frag<N, MT>& acc, const Seg (&s)[NSEG], bf16* ring,
                     const S& side = S{nullptr, nullptr}) {
@@ -239,8 +244,12 @@ __device__ void run(Frag<N, MT>& acc, const Seg (&s)[NSEG], bf16* ring,
     }
   }
   cp_async_wait<0>();
-  bulk_wait();
-  fence_async_all();
+  if constexpr (P::READS_BACK) {
+    bulk_wait();
+    fence_async_all();
+  } else {
+    bulk_wait_read();
+  }
   __syncthreads();
 }
 

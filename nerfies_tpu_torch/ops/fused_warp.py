@@ -66,13 +66,13 @@ def bwd_workspace_row_bytes(nt: int, width: int, depth: int) -> int:
   return 2 * (chains * (_PE_PAD + _HEAD_PAD + 2 * depth * width) + _HEAD_PAD)
 
 
-def bwd_chunk_rows(nt: int, width: int, depth: int,
-                   budget: int = _WARP_BWD_BUDGET) -> int:
-  """Most rows per chunk of the backward whose workspace fits in `budget`
-  bytes: a multiple of the row pass's rows per chain and block."""
+def bwd_chunk_rows(nt: int, width: int, depth: int) -> int:
+  """Most rows per chunk of the backward whose workspace fits in
+  _WARP_BWD_BUDGET bytes: a multiple of the row pass's rows per chain and
+  block."""
   tile = bwd_tile_rows(nt)
-  rows = budget // bwd_workspace_row_bytes(nt, width, depth) // tile * tile
-  return max(tile, rows)
+  row_bytes = bwd_workspace_row_bytes(nt, width, depth)
+  return max(tile, _WARP_BWD_BUDGET // row_bytes // tile * tile)
 
 
 def bwd_chunks(n: int, most: int):

@@ -254,19 +254,17 @@ def test_bwd_chunks_cover_the_rows_once(n, nt, chunks):
 @pytest.mark.parametrize('nt', [0, 3])
 @pytest.mark.parametrize('need_dx', [False, True])
 def test_plain_backward_over_chunks_equals_whole(nt, need_dx):
-  """The plain backward over the kernel's chunk plan (a small budget, so
-  that chunk seams fall inside the row pass's blocks) equals it unchunked:
-  per-row outputs row for row, dW as the sum of the chunks' dW."""
+  """The plain backward over a chunk plan of the kernel's (chunks of 100
+  rows, so that seams fall inside the row pass's blocks) equals it
+  unchunked: per-row outputs row for row, dW as the sum of the chunks'."""
   params = _torch_tree(_kernel_params(4))
   x, e, ts = _kernel_inputs(n=300, nt=nt, seed=4)
   rng = np.random.RandomState(5)
   g_out = rng.normal(size=(300, 8)).astype(np.float32)
   g_jouts = [rng.normal(size=(300, 8)).astype(np.float32) for _ in ts]
   ops = fused_warp.pack(params, x.shape[1], e.shape[1], 3, _SKIPS)
-  budget = 100 * fused_warp.bwd_workspace_row_bytes(nt, 128, 3)
-  plan = fused_warp.bwd_chunks(
-      300, fused_warp.bwd_chunk_rows(nt, 128, 3, budget=budget))
-  assert len(plan) > 1
+  plan = fused_warp.bwd_chunks(300, 100)
+  assert len(plan) == 3
 
   def run(rows):
     part = lambda a: torch.from_numpy(a[rows])
