@@ -5,13 +5,16 @@ Phases, each printed with its elapsed seconds; the run stops with a
 non-zero exit at the first phase that fails:
 
   device   require CUDA; print the card's name and power limit.
-  build    build the kernels from nerfies_tpu_torch/csrc with one nvcc call.
+  build    build the kernels from nerfies_tpu_torch/csrc, one nvcc per
+           source, started together; print ptxas's registers and spills
+           and require none for the serving forwards (NO_SPILL_KERNELS).
   kernels  hold each kernel against its plain PyTorch version at the full
            width of the bench model and at the row counts serving and
            training give it (atol = rtol = 0.05, the bf16 tolerance of
            tests/test_fused_mlp.py), and time kernel, plain version and a
            bf16 torch.matmul chain of the same function, under autograd
-           for a backward (a yardstick only; median of 5, CUDA events).
+           for a backward (a yardstick only; median of 5, CUDA events);
+           the two serving forwards at the coarse and the fine level's rows.
            The training kernels (NeRF MLP backward, warp forward with 3
            tangents, warp backward) run at the bench step's row counts and
            are compared the same way: per-row outputs at atol = rtol =
@@ -84,6 +87,8 @@ WARP_ALPHA = 6.0
 PARITY_RAYS = 256
 TRAIN_BATCH = 6144
 SERVE_KERNELS = ('nerf_mlp_forward', 'warp_trunk_forward')
+# Kernels whose ptxas report must show no spills at any width.
+NO_SPILL_KERNELS = ('nerf_mlp_kernel', 'warp_trunk_kernel')
 TRAIN_BACKGROUND_POINTS = 16384
 # A pre-activation within rounding of zero can fall on either side of the
 # ReLU in the kernel and in the plain version (their f32 sums run in
@@ -269,10 +274,16 @@ def phase_build():
   _build.load()
   seconds = time.perf_counter() - start
   print(f'build: {seconds:.2f} s, {path}')
+  entry = ''
   for line in _build.build_log().splitlines():
     if ('registers' in line or 'spill' in line or ' s, exit' in line
         or 'Compiling entry' in line):
       print(f'  {line.strip()}')
+    if 'Compiling entry' in line:
+      entry = line
+    elif 'spill stores' in line and any(k in entry for k in NO_SPILL_KERNELS):
+      spilled = [int(w) for w in line.replace(',', ' ').split() if w.isdigit()]
+      check(spilled[1:] == [0, 0], f'ptxas spills in {entry.strip()}: {line}')
   return seconds
 
 
@@ -372,6 +383,7 @@ def phase_kernels(model, device, generator, device_name):
   print(f'peaks used for bounds: {peak_flops / 1e12:.0f} TFLOP/s bf16, '
         f'{peak_bytes / 1e12:.2f} TB/s')
   results = {}
+  fine_rows = CHUNK * (model.num_coarse_samples + model.num_fine_samples)
   for case in _kernel_cases(model, device, generator):
     got = case['kernel']()
     torch.cuda.synchronize()
@@ -403,6 +415,9 @@ def phase_kernels(model, device, generator, device_name):
       entry.update(rows=case['rows'], ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
                    bound_by='operations' if flop_ms >= byte_ms else 'bytes')
+    elif case['rows'] == fine_rows:
+      entry.update(fine_rows=case['rows'], fine_ms=ms,
+                   fine_library_ms=library_ms, fine_bound_ms=bound_ms)
   return results
 
 
@@ -1019,7 +1034,7 @@ def main(argv=None):
         'rows': k['rows'],
         **{key: k[key] for key in ('row_pass_ms', 'row_pass_bound_ms',
                                    'weight_pass_ms', 'weight_pass_bound_ms',
-                                   'fine_rows', 'fine_rows_ms',
+                                   'fine_rows', 'fine_ms', 'fine_rows_ms',
                                    'fine_library_ms', 'fine_bound_ms')
            if key in k}})
   print(f'total: {time.perf_counter() - total:.2f} s '

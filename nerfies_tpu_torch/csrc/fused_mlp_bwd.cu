@@ -52,13 +52,6 @@
 
 namespace {
 
-// A warp owns MT m16 tiles of rows (MT * 16 rows) and a quarter of the
-// columns of every product: MT = 4, 8 warps, at width 256, where a
-// thread's 128 accumulators leave no room for a second warp's worth of
-// state; MT = 2, 16 warps, below, for twice the warps to hide latency.
-template <int W>
-__host__ __device__ constexpr int mtiles() { return W > 128 ? 4 : 2; }
-
 enum { HAS_BOTTLENECK = 1, ALPHA_FROM_BT = 2, RGB_FROM_BT = 4 };
 
 struct NerfBwdArgs {

@@ -1,9 +1,8 @@
-// Building blocks of the forward kernels (fused_mlp.cu: the NeRF MLP and
-// the serving warp trunk; fused_warp.cu: the training warp trunk's primal
-// and tangent chains): row tiles in shared memory, weight slices streamed
-// from L2, nvcuda::wmma bf16 products with f32 accumulators, and the
-// epilogues that round to bf16 or write f32 head outputs. The backward row
-// passes use row_pass.cuh instead.
+// Building blocks of the training warp trunk's forward (fused_warp.cu: the
+// primal and tangent chains): row tiles in shared memory, weight slices
+// streamed from L2, nvcuda::wmma bf16 products with f32 accumulators, and
+// the epilogue that writes f32 head outputs. The serving forwards
+// (fused_mlp.cu) and the backward row passes use row_pass.cuh instead.
 //
 // Layout conventions. A block of NTHREADS = 256 threads (8 warps) owns BM =
 // 64 rows. Warp w owns the 16 rows 16*(w%4) .. +16 of every product and the
@@ -126,36 +125,6 @@ __device__ void accumulate_chains(Acc<N> (&acc)[C],
             wmma::mma_sync(acc[c].f[j], a, b[j], acc[c].f[j]);
         }
       }
-    }
-  }
-}
-
-// out[BM x N] (shared, bf16) = act(acc + row_bias + bias). row_bias is the
-// block's first row in global memory (row stride N) or null.
-template <int N>
-__device__ void epilogue_bf16(Acc<N>& acc, const bf16* __restrict__ bias,
-                              const bf16* __restrict__ row_bias,
-                              int rows_valid, bool relu, bf16* out, int ldo,
-                              float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp & 3, cg = warp >> 2;
-  float* s = scratch + warp * 256;
-#pragma unroll
-  for (int j = 0; j < Acc<N>::PER_WARP; ++j) {
-    const int t = cg + 2 * j;
-    if (t < Acc<N>::TILES) {
-      wmma::store_matrix_sync(s, acc.f[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rg * 16 + (e >> 4), c = t * 16 + (e & 15);
-        float v = s[e];
-        if (row_bias != nullptr && r < rows_valid)
-          v += __bfloat162float(row_bias[(size_t)r * N + c]);
-        v += __bfloat162float(bias[c]);
-        if (relu) v = fmaxf(v, 0.0f);
-        out[r * ldo + c] = __float2bfloat16(v);
-      }
-      __syncwarp();
     }
   }
 }

@@ -1,5 +1,6 @@
 // The product engine of the pipelined row passes (fused_mlp_bwd.cu, the
-// NeRF MLP's backward, and fused_warp_bwd.cu, the warp trunk's): a block
+// NeRF MLP's backward, and fused_warp_bwd.cu, the warp trunk's) and of the
+// serving forwards (fused_mlp.cu): a block
 // of RBM rows, mma.sync.m16n8k16 bf16 products with f32 accumulators in
 // registers fed by ldmatrix, weight slices streamed through a ring of
 // cp.async stages with one barrier per slice, products of up to a few
@@ -24,6 +25,13 @@ constexpr int RBM = 128;        // rows per block
 __host__ __device__ constexpr int threads_for(int mt) {
   return RBM / (mt * 16) * 4 * 32;
 }
+// A warp owns MT m16 tiles of rows (MT * 16 rows) and a quarter of the
+// columns of every product of a NeRF MLP of width W: MT = 4, 8 warps, at
+// width 256, where a thread's 128 accumulators leave no room for a second
+// warp's worth of state; MT = 2, 16 warps, below, for twice the warps to
+// hide latency.
+template <int W>
+__host__ __device__ constexpr int mtiles() { return W > 128 ? 4 : 2; }
 constexpr int RPAD = 8;         // shared row padding (bf16 elements)
 constexpr int CPAD = 64;        // input columns, zero-padded
 constexpr int LDX = CPAD + RPAD;
@@ -391,11 +399,13 @@ __device__ void epi_grad(const Frag<N, MT>& acc, const bf16* mask, int ldm,
 }
 
 // out[r, c] (global f32, the block's first row, row stride ld) =
-// (add ? out[r, c] : 0) + acc, for the valid rows and the first ncols
-// columns. The same thread writes and later re-reads each element.
+// (add ? out[r, c] : 0) + bias[c] + acc, for the valid rows and the first
+// ncols columns; bias (bf16, N columns) may be null. The same thread
+// writes and later re-reads each element.
 template <int N, int MT>
 __device__ void epi_f32(const Frag<N, MT>& acc, float* __restrict__ out, int ld,
-                        int ncols, int rows_valid, bool add) {
+                        int ncols, int rows_valid, bool add,
+                        const bf16* bias = nullptr) {
   constexpr int NTW = Frag<N, MT>::NTW;
   const int lane = threadIdx.x & 31;
   const int wm = Frag<N, MT>::row0(), nb0 = Frag<N, MT>::col0();
@@ -409,9 +419,10 @@ __device__ void epi_f32(const Frag<N, MT>& acc, float* __restrict__ out, int ld,
       for (int e = 0; e < 4; ++e) {
         const int r = wm + mt * 16 + frag_row(lane, e);
         const int c = nb0 + j * 8 + frag_col(lane, e);
-        prev[j][mt][e] = add && c < ncols && r < rows_valid
-                             ? out[(size_t)r * ld + c]
-                             : 0.0f;
+        prev[j][mt][e] = (add && c < ncols && r < rows_valid
+                              ? out[(size_t)r * ld + c]
+                              : 0.0f) +
+                         (bias != nullptr ? __bfloat162float(bias[c]) : 0.0f);
       }
 #pragma unroll
   for (int j = 0; j < NTW; ++j)

@@ -18,7 +18,8 @@ from nerfies_tpu_torch.models import nerf
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / 'nerfies_tpu_torch').rglob('*.py')) + [
-    REPO / 'chip_smoke.py', REPO / 'scripts' / 'time_warp_backward.py']
+    REPO / 'chip_smoke.py', REPO / 'scripts' / 'time_warp_backward.py',
+    REPO / 'scripts' / 'time_forwards.py']
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nerfies_tpu')
 
 

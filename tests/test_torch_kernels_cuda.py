@@ -36,17 +36,21 @@ def cuda_device():
 NERF_WIDTHS = [(256, 128), (128, 128), (32, 128)]
 
 
-def _nerf(generator, widths=(256, 128), alpha_dims=0):
+def _nerf(generator, widths=(256, 128), alpha_dims=0, rgb_dims=29):
   """A NerfMLP with an rgb condition (and an alpha one if alpha_dims)."""
   width, rgb_width = widths
   return modules.nerf_mlp(point_dims=51, alpha_condition_dims=alpha_dims,
-                          rgb_condition_dims=29, trunk_width=width,
+                          rgb_condition_dims=rgb_dims, trunk_width=width,
                           rgb_branch_width=rgb_width, generator=generator)
+
+
+# A block owns 128 rows: 127, 128, 129 and 257 sit at its edges.
+FORWARD_ROWS = [1, 64, 127, 128, 129, 257, 1000, 4099]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('widths', NERF_WIDTHS)
-@pytest.mark.parametrize('n', [1, 64, 1000, 4099])
+@pytest.mark.parametrize('n', FORWARD_ROWS)
 @pytest.mark.parametrize('with_bias', [False, True])
 def test_nerf_kernel_matches_plain_on_card(cuda_device, n, with_bias,
                                            widths):
@@ -65,13 +69,59 @@ def test_nerf_kernel_matches_plain_on_card(cuda_device, n, with_bias,
     torch.testing.assert_close(g_, w_, atol=ATOL, rtol=RTOL)
 
 
+# The kernel's flags: a condition on a head gives the MLP a bottleneck and
+# makes that head read it; with none, both heads read the trunk.
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 64, 4099])
+@pytest.mark.parametrize('widths', NERF_WIDTHS)
+@pytest.mark.parametrize('alpha_dims', [0, 8])
+@pytest.mark.parametrize('rgb_dims', [0, 29])
+@pytest.mark.parametrize('with_bias', [False, True])
+def test_nerf_kernel_flags_match_plain_on_card(cuda_device, alpha_dims,
+                                               rgb_dims, with_bias, widths):
+  """Each head read from the trunk or the bottleneck, with or without rb."""
+  g = torch.Generator().manual_seed(17 + alpha_dims + rgb_dims)
+  params = _tree_to(_nerf(g, widths, alpha_dims, rgb_dims), cuda_device)
+  ops = fused_mlp.pack_nerf_mlp(params, 51, 8, (4,))
+  assert (ops.bottleneck is not None) == (alpha_dims + rgb_dims > 0)
+  assert ops.alpha_from_bt == (alpha_dims > 0)
+  assert ops.rgb_from_bt == (rgb_dims > 0)
+  n = 1000
+  x = torch.randn(n, 51, generator=g).to(cuda_device)
+  rb = (torch.randn(n, widths[1], generator=g).to(cuda_device)
+        if with_bias else None)
+  got = fused_mlp.nerf_mlp_forward(x, rb, params, trunk_depth=8, skips=(4,))
+  torch.cuda.synchronize()
+  want = fused_mlp.nerf_mlp_reference(x, rb, params, trunk_depth=8,
+                                      skips=(4,))
+  for g_, w_ in zip(got, want):
+    torch.testing.assert_close(g_, w_, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('widths', NERF_WIDTHS)
+def test_nerf_kernel_is_deterministic_on_card(cuda_device, widths):
+  g = torch.Generator().manual_seed(5)
+  params = _tree_to(_nerf(g, widths), cuda_device)
+  x = torch.randn(4099, 51, generator=g).to(cuda_device)
+  rb = torch.randn(4099, widths[1], generator=g).to(cuda_device)
+  runs = [fused_mlp.nerf_mlp_forward(x, rb, params, trunk_depth=8,
+                                     skips=(4,)) for _ in range(2)]
+  torch.cuda.synchronize()
+  for first, second in zip(*runs):
+    assert torch.equal(first, second)
+
+
+def _warp_trunk(generator, device):
+  trunk = modules.mlp([39, 8], 6, 128, (4,), generator=generator)
+  head = modules.mlp([128], 0, 128, output_channels=6, generator=generator)
+  return _tree_to({'trunk': trunk, 'branches_wv': head}, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', FORWARD_ROWS)
 def test_warp_kernel_matches_plain_on_card(cuda_device, n):
   g = torch.Generator().manual_seed(n)
-  trunk = modules.mlp([39, 8], 6, 128, (4,), generator=g)
-  head = modules.mlp([128], 0, 128, output_channels=6, generator=g)
-  params = _tree_to({'trunk': trunk, 'branches_wv': head}, cuda_device)
+  params = _warp_trunk(g, cuda_device)
   x = torch.randn(n, 39, generator=g).to(cuda_device)
   biases = [(i, torch.randn(n, 128, generator=g).to(cuda_device))
             for i in (0, 4)]
@@ -83,6 +133,19 @@ def test_warp_kernel_matches_plain_on_card(cuda_device, n):
   want = fused_mlp.warp_trunk_reference(x, biases, params, trunk_depth=6,
                                         skips=(4,))
   torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_warp_kernel_is_deterministic_on_card(cuda_device):
+  g = torch.Generator().manual_seed(6)
+  params = _warp_trunk(g, cuda_device)
+  x = torch.randn(4099, 39, generator=g).to(cuda_device)
+  biases = [(i, torch.randn(4099, 128, generator=g).to(cuda_device))
+            for i in (0, 4)]
+  runs = [fused_mlp.warp_trunk_forward(x, biases, params, trunk_depth=6,
+                                       skips=(4,)) for _ in range(2)]
+  torch.cuda.synchronize()
+  assert torch.equal(runs[0], runs[1])
 
 
 def _tree_to(tree, device):
