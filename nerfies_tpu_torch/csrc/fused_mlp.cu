@@ -27,26 +27,30 @@
 // MLP's weights are 1.16 MB of bf16). Each warp computes MT m16 tiles of
 // rows and a quarter of the columns of every product, as mma.sync.m16n8k16
 // bf16 tiles with f32 accumulators in registers, fed by ldmatrix, so that
-// each B fragment serves MT row tiles: at NeRF width 256, 8 warps of MT =
-// 4 (128 accumulators a thread, 1 block and 8 warps a SM); below, and for
-// the warp trunk, 16 warps of MT = 2 (1 block, 16 warps a SM). Weight
-// slices of KS rows (32 at width 256, 64 below) flow through a ring of 3
-// cp.async stages with one barrier per slice; a head's weight (at most
-// 256 x 16) lands as one slice. A product's first slices are issued
-// before the previous product's epilogue where the registers allow (MT =
-// 2), so that they land while it runs; the first layer's slices and the
-// biases are in flight while the block loads its encoding tile. A skip
-// layer is one product of two terms (the hidden state's, then the
-// encoding's). Each product's accumulators are complete before its
+// each B fragment serves MT row tiles. Weight slices of 64 rows flow
+// through a ring of cp.async stages with one barrier per slice; a head's
+// weight (at most 256 x 16) lands as one slice. A skip layer is one
+// product of two terms (the hidden state's, then the encoding's). The
+// first layer's slices and the biases are in flight while the block loads
+// its encoding tile. Each product's accumulators are complete before its
 // epilogue, which writes in place: the trunk runs in one activation
 // buffer, the biases are read from shared memory and a row bias as bf16
 // pairs, and a head goes to its f32 output straight from the fragments.
 // No product waits for stores: the kernels issue none.
 //
-// Shared memory: the encoding tile (128 x 64 bf16), one activation buffer
-// of max(W, RW) columns (two for the NeRF MLP, whose heads may read the
-// trunk and the bottleneck), the ring and the biases: 209 KB for the NeRF
-// MLP at width 256, depth 8; 107 KB for the warp trunk.
+// Layouts (warps, MT, ring, registers from ptxas, shared memory):
+// - NeRF MLP at width 256: 8 warps of MT = 4, one block a SM; 128
+//   accumulators a thread (186 registers), so a product's first slices
+//   are issued after the previous epilogue. Two activation buffers of 256
+//   columns (the heads may read the trunk and the bottleneck) leave room
+//   for 2 ring stages: 226 KB at depth 8.
+// - NeRF MLP at widths 128 and 32: 16 warps of MT = 2 (at most 87
+//   registers), one block a SM, 3 stages; a product's first slices are
+//   issued before the previous epilogue, to land while it runs. 140 KB.
+// - Warp trunk: 8 warps of MT = 4 (122 registers) and two blocks a SM
+//   (107 KB each), so that one block's epilogues, row-bias loads and tile
+//   load overlap the other's products; its blocks are short (92,672
+//   multiply-adds a row). 3 stages, slices issued before each epilogue.
 //
 // Built by ops/_build.py into a plain C shared library and called through
 // ctypes (ops/fused_mlp.py).
@@ -55,17 +59,22 @@
 
 namespace {
 
-constexpr int STAGES = 3;
+constexpr int KS = 64;  // weight rows per ring slice
 
-// Weight rows per ring slice: 32 at width 256, where shared memory allows
-// no more; 64 below (half the barriers).
-template <int W>
-__host__ __device__ constexpr int slice_rows() { return W > 128 ? 32 : 64; }
+// Ring stages: 3, or 2 where the activation buffers are 256 wide and
+// shared memory holds no more. 64-row slices in 2 stages ran ~10% faster
+// there than 32-row slices in 3 (half the barriers).
+template <int L>
+__host__ __device__ constexpr int ring_stages() { return L > 128 ? 2 : 3; }
 
 // A ring stage holds KS rows of a (K x L) weight; a head's (L x HEAD)
 // weight fits in one.
-template <int L, int KS>
+template <int L>
 __host__ __device__ constexpr int fwd_stage() { return KS * (L + RPAD); }
+
+// The warp trunk's layout: 8 warps of MT = 4 and two blocks a SM, so that
+// one block's epilogues and waits overlap the other's products.
+constexpr int WARP_MT = 4;
 
 // Columns of the activation buffers: the widest product's.
 template <int W, int RW>
@@ -73,10 +82,10 @@ __host__ __device__ constexpr int fwd_cols() {
   return W > RW ? (W > CPAD ? W : CPAD) : (RW > CPAD ? RW : CPAD);
 }
 
-template <int L, int KS>
+template <int L>
 constexpr size_t fwd_smem_bytes(int buffers, int bias_elems) {
   return sizeof(bf16) * (RBM * LDX + buffers * RBM * (L + RPAD) +
-                         STAGES * fwd_stage<L, KS>() + bias_elems);
+                         ring_stages<L>() * fwd_stage<L>() + bias_elems);
 }
 
 // Copies n bf16 (a multiple of 8) from global src to shared dst as
@@ -125,8 +134,8 @@ __global__ void __launch_bounds__(threads_for(mtiles<W>()), 1)
   constexpr bool EARLY = MT == 2;
   constexpr int L = fwd_cols<W, RW>();
   constexpr int LDB = L + RPAD;
-  constexpr int KS = slice_rows<W>();
-  using P = Pipe<KS, STAGES, fwd_stage<L, KS>(), false>;
+  constexpr int STAGES = ring_stages<L>();
+  using P = Pipe<KS, STAGES, fwd_stage<L>(), false>;
   using PH = Pipe<L, STAGES, P::STAGE, false>;  // heads: one slice
   static_assert(L * (HEAD + RPAD) <= P::STAGE, "a head fits in one stage");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -258,15 +267,15 @@ struct WarpArgs {
 };
 
 template <int W>
-__global__ void __launch_bounds__(threads_for(mtiles<W>()), 1)
+__global__ void __launch_bounds__(threads_for(WARP_MT), 2)
     warp_trunk_kernel(const __grid_constant__ WarpArgs a) {
-  constexpr int MT = mtiles<W>();
+  constexpr int MT = WARP_MT;
   constexpr int THREADS = threads_for(MT);
-  constexpr bool EARLY = MT == 2;
+  constexpr bool EARLY = true;  // 122 registers: room for a begin
   constexpr int L = W > CPAD ? W : CPAD;
   constexpr int LDB = L + RPAD;
-  constexpr int KS = slice_rows<W>();
-  using P = Pipe<KS, STAGES, fwd_stage<L, KS>(), false>;
+  constexpr int STAGES = ring_stages<L>();
+  using P = Pipe<KS, STAGES, fwd_stage<L>(), false>;
   using PH = Pipe<L, STAGES, P::STAGE, false>;
   static_assert(L * (HEAD + RPAD) <= P::STAGE, "the head fits in one stage");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -346,8 +355,7 @@ template <int W, int RW>
 cudaError_t launch_nerf(const NerfArgs& a, cudaStream_t stream) {
   constexpr int L = fwd_cols<W, RW>();
   return launch(nerf_mlp_kernel<W, RW>, a, threads_for(mtiles<W>()),
-                fwd_smem_bytes<L, slice_rows<W>()>(
-                    2, nerf_bias_elems(a.depth, W, RW)),
+                fwd_smem_bytes<L>(2, nerf_bias_elems(a.depth, W, RW)),
                 stream);
 }
 
@@ -421,9 +429,8 @@ int warp_trunk_forward(void* const* p, int n, int c_in, int depth,
   a.skip_mask = skip_mask;
   if (width == 128) {
     constexpr int L = 128;
-    return (int)launch(warp_trunk_kernel<128>, a, threads_for(mtiles<128>()),
-                       fwd_smem_bytes<L, slice_rows<128>()>(
-                           1, depth * 128 + HEAD),
+    return (int)launch(warp_trunk_kernel<128>, a, threads_for(WARP_MT),
+                       fwd_smem_bytes<L>(1, depth * 128 + HEAD),
                        (cudaStream_t)stream);
   }
   return (int)cudaErrorInvalidValue;
