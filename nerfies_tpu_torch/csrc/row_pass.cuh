@@ -1,13 +1,12 @@
 // The product engine of the pipelined row passes (fused_mlp_bwd.cu, the
 // NeRF MLP's backward, and fused_warp_bwd.cu, the warp trunk's) and of the
-// serving forwards (fused_mlp.cu): a block
-// of RBM rows, mma.sync.m16n8k16 bf16 products with f32 accumulators in
-// registers fed by ldmatrix, weight slices streamed through a ring of
-// cp.async stages with one barrier per slice, products of up to a few
-// terms (A_i @ B_i) in one slice stream, B = W or W^T read from the
-// weight's (in, out) layout without a transposed copy, epilogues that
-// write in place after a product's closing barrier, and workspace tiles
-// sent out as bulk copies.
+// serving forwards (fused_mlp.cu): a block of RBM rows, mma.sync.m16n8k16
+// bf16 products with f32 accumulators in registers fed by ldmatrix, weight
+// slices streamed through a ring of cp.async stages with one barrier per
+// slice, products of up to a few terms (A_i @ B_i) in one slice stream, B
+// = W or W^T read from the weight's (in, out) layout without a transposed
+// copy, epilogues that write in place after a product's closing barrier,
+// and workspace tiles sent out as bulk copies.
 //
 // Everything below the includes lies in an anonymous namespace, so each
 // file that includes this header has its own copy with internal linkage.
@@ -25,6 +24,7 @@ constexpr int RBM = 128;        // rows per block
 __host__ __device__ constexpr int threads_for(int mt) {
   return RBM / (mt * 16) * 4 * 32;
 }
+
 // A warp owns MT m16 tiles of rows (MT * 16 rows) and a quarter of the
 // columns of every product of a NeRF MLP of width W: MT = 4, 8 warps, at
 // width 256, where a thread's 128 accumulators leave no room for a second
@@ -32,6 +32,7 @@ __host__ __device__ constexpr int threads_for(int mt) {
 // hide latency.
 template <int W>
 __host__ __device__ constexpr int mtiles() { return W > 128 ? 4 : 2; }
+
 constexpr int RPAD = 8;         // shared row padding (bf16 elements)
 constexpr int CPAD = 64;        // input columns, zero-padded
 constexpr int LDX = CPAD + RPAD;
