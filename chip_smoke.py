@@ -7,7 +7,7 @@ non-zero exit at the first phase that fails:
   device   require CUDA; print the card's name and power limit.
   build    build the kernels from nerfies_tpu_torch/csrc, one nvcc per
            source, started together; print ptxas's registers and spills
-           and require none for the serving forwards (NO_SPILL_KERNELS).
+           and require none for the forwards (NO_SPILL_KERNELS).
   kernels  hold each kernel against its plain PyTorch version at the full
            width of the bench model and at the row counts serving and
            training give it (atol = rtol = 0.05, the bf16 tolerance of
@@ -23,8 +23,8 @@ non-zero exit at the first phase that fails:
            DW_MAX_REL * max|plain|; each backward runs twice and must give
            bit-identical dW (the reduction is deterministic). Each
            backward's row pass and weight-gradient pass are also timed on
-           their own, and the warp backward is checked and timed at the
-           fine level's rows too (no tangents).
+           their own, and the warp forward and backward are checked and
+           timed at the fine level's rows too (no tangents).
   widths   hold the NeRF forward and backward against their plain versions,
            as above, at the other widths the kernels are built for
            (OTHER_NERF_WIDTHS), OTHER_WIDTH_ROWS rows.
@@ -88,7 +88,7 @@ PARITY_RAYS = 256
 TRAIN_BATCH = 6144
 SERVE_KERNELS = ('nerf_mlp_forward', 'warp_trunk_forward')
 # Kernels whose ptxas report must show no spills at any width.
-NO_SPILL_KERNELS = ('nerf_mlp_kernel', 'warp_trunk_kernel')
+NO_SPILL_KERNELS = ('nerf_mlp_kernel', 'warp_trunk_kernel', 'warp_fwd_kernel')
 TRAIN_BACKGROUND_POINTS = 16384
 # A pre-activation within rounding of zero can fall on either side of the
 # ReLU in the kernel and in the plain version (their f32 sums run in
@@ -598,19 +598,18 @@ def phase_train_kernels(model, device, generator, device_name):
     check(bad <= allowed, f'warp_mlp_forward: output {i} differs on {bad} '
           'rows')
   del got, want
-  results['warp_mlp_forward'] = report(
+  weight_bytes = 2 * sum(v.numel() for v in wops.values())
+  results['warp_mlp_forward'] = fwd_entry = report(
       'warp_mlp_forward', n, err, time_ms(kernel, reps=5),
       time_ms(plain, reps=3),
       time_ms(lambda: library_warp_train(x, e, ts, wops, warp_depth,
                                          warp_skips), reps=5),
       2 * warp_fwd_macs * n,
-      nbytes(x, e, *ts) + 4 * n * 8 * 4 + 2 * sum(
-          v.numel() for v in wops.values()))
+      nbytes(x, e, *ts) + 4 * n * 8 * 4 + weight_bytes)
 
   go = randn(n, 8)
   gjs = [randn(n, 8) for _ in range(nt)]
   kw = dict(trunk_depth=warp_depth, skips=warp_skips)
-  weight_bytes = 2 * sum(v.numel() for v in wops.values())
 
   def check_warp_backward(args):
     """Compared with dx and d_tangents (need_dx); dW twice, same bits."""
@@ -658,15 +657,35 @@ def phase_train_kernels(model, device, generator, device_name):
     entry.update({f'{part}_ms': part_ms, f'{part}_bound_ms': part_bound})
   del passes, args, x, e, ts, go, gjs, pts
 
-  # The fine level's launch: no tangents, twice the rows.
+  # The fine level's launches: no tangents, twice the rows.
   n = fine
   x = encoding.posenc(randn(n, 3), model.num_warp_freqs, alpha=WARP_ALPHA)
   e = 0.05 * torch.rand(n, f_embed, generator=generator, device=device)
+  fine_fwd_macs = chain_macs + embed_macs
+  kernel = lambda: fused_warp.warp_mlp_forward(x, e, [], warp_params, **kw)
+  got = kernel()
+  torch.cuda.synchronize()
+  want = fused_warp.warp_mlp_reference(x, e, [], warp_params, **kw)
+  e_fine, bad, allowed = _compare_rows(got[0], want[0])
+  print(f'    warp_mlp_forward rows={n} output 0: max_abs_err {e_fine:.3g}, '
+        f'{bad} rows beyond atol=rtol={KERNEL_ATOL} (allowed {allowed})')
+  check(bad <= allowed, f'warp_mlp_forward rows={n}: differs on {bad} rows')
+  del got, want
+  fine_fwd = report(
+      'warp_mlp_forward', n, e_fine, time_ms(kernel, reps=5),
+      time_ms(lambda: fused_warp.warp_mlp_reference(x, e, [], warp_params,
+                                                    **kw), reps=3),
+      time_ms(lambda: library_warp_train(x, e, [], wops, warp_depth,
+                                         warp_skips), reps=5),
+      2 * fine_fwd_macs * n, nbytes(x, e) + n * 8 * 4 + weight_bytes)
+  fwd_entry['max_abs_err'] = max(e_fine, fwd_entry['max_abs_err'])
+  fwd_entry.update(fine_rows=n, fine_ms=fine_fwd['ms'],
+                   fine_library_ms=fine_fwd['library_ms'],
+                   fine_bound_ms=fine_fwd['bound_ms'])
   go = randn(n, 8)
   args = (x, e, [], warp_params, go, [])
   err = check_warp_backward(args)
   entry['max_abs_err'] = max(err, entry['max_abs_err'])
-  fine_fwd_macs = chain_macs + embed_macs
   fine_entry = report(
       'warp_mlp_backward', n, err,
       time_ms(lambda: fused_warp.warp_mlp_backward(*args, **kw,

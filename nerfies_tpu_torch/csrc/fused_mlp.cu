@@ -67,11 +67,6 @@ constexpr int KS = 64;  // weight rows per ring slice
 template <int L>
 __host__ __device__ constexpr int ring_stages() { return L > 128 ? 2 : 3; }
 
-// A ring stage holds KS rows of a (K x L) weight; a head's (L x HEAD)
-// weight fits in one.
-template <int L>
-__host__ __device__ constexpr int fwd_stage() { return KS * (L + RPAD); }
-
 // The warp trunk's layout: 8 warps of MT = 4 and two blocks a SM, so that
 // one block's epilogues and waits overlap the other's products.
 constexpr int WARP_MT = 4;
@@ -85,7 +80,7 @@ __host__ __device__ constexpr int fwd_cols() {
 template <int L>
 constexpr size_t fwd_smem_bytes(int buffers, int bias_elems) {
   return sizeof(bf16) * (RBM * LDX + buffers * RBM * (L + RPAD) +
-                         ring_stages<L>() * fwd_stage<L>() + bias_elems);
+                         ring_stages<L>() * w_stage<L, KS>() + bias_elems);
 }
 
 // Copies n bf16 (a multiple of 8) from global src to shared dst as
@@ -135,7 +130,7 @@ __global__ void __launch_bounds__(threads_for(mtiles<W>()), 1)
   constexpr int L = fwd_cols<W, RW>();
   constexpr int LDB = L + RPAD;
   constexpr int STAGES = ring_stages<L>();
-  using P = Pipe<KS, STAGES, fwd_stage<L>(), false>;
+  using P = Pipe<KS, STAGES, w_stage<L, KS>(), false>;
   using PH = Pipe<L, STAGES, P::STAGE, false>;  // heads: one slice
   static_assert(L * (HEAD + RPAD) <= P::STAGE, "a head fits in one stage");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -275,7 +270,7 @@ __global__ void __launch_bounds__(threads_for(WARP_MT), 2)
   constexpr int L = W > CPAD ? W : CPAD;
   constexpr int LDB = L + RPAD;
   constexpr int STAGES = ring_stages<L>();
-  using P = Pipe<KS, STAGES, fwd_stage<L>(), false>;
+  using P = Pipe<KS, STAGES, w_stage<L, KS>(), false>;
   using PH = Pipe<L, STAGES, P::STAGE, false>;
   static_assert(L * (HEAD + RPAD) <= P::STAGE, "the head fits in one stage");
   extern __shared__ __align__(128) unsigned char smem[];

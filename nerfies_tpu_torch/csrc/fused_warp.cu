@@ -1,35 +1,60 @@
 // The warp trunk of training, for sm_90a: the forward of the primal and
 // tangent chains.
 //
-// Replaces nerfies_tpu/ops/fused_warp.py:147 _warp_fwd (kernel body :168),
-// with the same rounding points: bf16 operands (x, the metadata embedding,
-// the tangents, every activation), f32 sums, the bias added in f32, the
-// ReLU mask taken from the primal's f32 pre-activation, f32 head outputs.
-// Its VJP is fused_warp_bwd.cu's row pass with weight_grad.cu.
+// Replaces nerfies_tpu/ops/fused_warp.py:147 _warp_fwd (kernel body :168,
+// pallas_call :194), with the same rounding points (warp_chains.cuh):
+// bf16 operands (x, the metadata embedding, the tangents, every
+// activation), f32 sums, the bias added in f32, the ReLU mask taken from
+// the primal's f32 pre-activation and passed to the tangents, which take
+// no bias, f32 head outputs with the head's bias on the primal only. Its
+// VJP is fused_warp_bwd.cu's row pass with weight_grad.cu.
 //
 // The trunk (6 x 128 with a skip at 4 on the bench model) reads the
 // encoding at layer 0 and at each skip, and the metadata embedding (F = 8
 // columns, padded to 16 for the MMA's k) at the same layers, as a product
 // with its own weight rows. 0 or 3 tangent chains (d pe / d x_j) run beside
-// the primal: they take the same weight products without bias and the
-// primal's ReLU mask, and their heads give the Jacobian columns.
+// the primal; their heads give the Jacobian columns.
 //
-// Design. One block of 8 warps owns 64 rows of every chain. The chains
-// share each streamed weight slice and each B fragment (accumulate_chains
-// in mlp_common.cuh), so a 4-chain layer costs one weight stream and four
-// times the MMAs. Each chain keeps one activation buffer in shared memory,
-// overwritten in place after a barrier. The mask travels from the primal's
-// epilogue to the tangents' as 8 bits per lane: a lane handles the same 8
-// elements of every chain's 16 x 16 tile.
+// Bound on an H100 SXM, at the bench widths: 92,672 multiply-adds a row
+// and chain (0.75 MFLOP a row with 3 tangents, 0.59 ms at 786,432 rows at
+// the bf16 tensor rate) against ~800 bytes a row of inputs and outputs
+// (0.19 ms at 3.35 TB/s): operations. What holds it back long before
+// either is latency: weight slices streamed from L2 once per block of
+// rows, the barriers between them, and the epilogues.
 //
-// Bound on an H100 SXM: per row and chain, 92,672 multiply-adds: the
-// tensor rate, against a few hundred bytes per row of inputs and outputs.
+// Design: the product engine of the row passes and the serving forwards
+// (row_pass.cuh), with the chains stacked in one 128-row tile as in the
+// backward's recompute (warp_chains.cuh), and no stores to a workspace:
+// - a block owns 128 / C rows of each of its C chains (C = 4 with 3
+//   tangents, a warp's m-tile mt belonging to chain mt % C; C = 1
+//   without), so every weight slice streamed from L2 serves 128
+//   chain-rows, and a layer of all chains is one product: the layer
+//   input's term, the encoding's at a skip, and the embedding's k = 16
+//   term at layer 0 and at a skip, whose A tile is zero in the tangents'
+//   rows;
+// - mma.sync.m16n8k16 fed by ldmatrix, 64-row weight slices through a
+//   3-stage cp.async ring with one barrier a slice, each product's first
+//   slices issued before the previous epilogue so that they land while it
+//   runs; the head's (128 x 16) weight lands as one slice;
+// - epilogues in place, in registers: the primal's f32 mask goes to the
+//   tangents in the same lane and is never written out, the biases come
+//   from shared memory (one more cp.async group behind the first
+//   product's slices), the heads go to their f32 outputs straight from the
+//   fragments;
+// - 8 warps of MT = 4 m-tiles (64 accumulators a thread) and two blocks a
+//   SM, as the serving warp trunk (fused_mlp.cu): one block's tile load,
+//   epilogues and barriers overlap the other's products.
+//
+// Built by ops/_build.py into a plain C shared library and called through
+// ctypes (ops/fused_warp.py).
 
-#include "mlp_common.cuh"
+#include "warp_chains.cuh"
 
 namespace {
 
-constexpr int MAXT = 3;  // most tangent chains
+constexpr int KS = 64;      // weight rows per ring slice
+constexpr int STAGES = 3;
+constexpr int FWD_MT = 4;   // m16 tiles a warp: 8 warps, two blocks a SM
 
 struct WarpFwdArgs {
   const float* x;          // (n, c_in)
@@ -46,127 +71,102 @@ struct WarpFwdArgs {
   int n, c_in, f, depth, skip_mask;
 };
 
+// Every chain's input, the primal's embedding, one activation buffer, the
+// ring, and the biases (each layer's, then the head's).
+template <int W>
+size_t warp_fwd_smem_bytes(int depth) {
+  return sizeof(bf16) * (RBM * LDX + RBM * LDG + RBM * (W + RPAD) +
+                         STAGES * w_stage<W, KS>() + depth * W + HEAD);
+}
+
 template <int W, int C>
-constexpr size_t warp_smem_bytes() {
-  return sizeof(bf16) * (C * BM * LDX + BM * LDG + C * BM * (W + SPAD) +
-                         BK * (W + SPAD)) +
-         sizeof(float) * (NTHREADS / 32) * 256;
-}
-
-// act[c] = chain c's activation: the primal's ReLU of (acc + bias) and the
-// tangents' acc under the primal's f32 mask, each rounded to bf16, to
-// shared memory (row stride ldo).
-template <int N, int C>
-__device__ void epilogue_chains(Acc<N> (&acc)[C], const bf16* __restrict__ bias,
-                                bf16* const (&out)[C], int ldo,
-                                float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp & 3, cg = warp >> 2;
-  float* s = scratch + warp * 256;
-#pragma unroll
-  for (int j = 0; j < Acc<N>::PER_WARP; ++j) {
-    const int t = cg + 2 * j;
-    if (t >= Acc<N>::TILES) continue;
-    unsigned bits = 0;
-    wmma::store_matrix_sync(s, acc[0].f[j], 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int e = lane + 32 * k;
-      const int r = rg * 16 + (e >> 4), c = t * 16 + (e & 15);
-      const float v = s[e] + __bfloat162float(bias[c]);
-      const bool on = v > 0.0f;
-      bits |= (unsigned)on << k;
-      out[0][r * ldo + c] = __float2bfloat16(on ? v : 0.0f);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int ch = 1; ch < C; ++ch) {
-      wmma::store_matrix_sync(s, acc[ch].f[j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int e = lane + 32 * k;
-        const int r = rg * 16 + (e >> 4), c = t * 16 + (e & 15);
-        out[ch][r * ldo + c] =
-            __float2bfloat16(((bits >> k) & 1) ? s[e] : 0.0f);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// The forward over one block's rows of all C chains; the last layer's
-// activations stay in hs[c].
-template <int W, int C>
-__device__ void warp_forward_tile(const WarpFwdArgs& a, bf16* const (&in)[C],
-                                  const bf16* es, bf16* const (&hs)[C],
-                                  bf16* w_s, float* scratch) {
-  const bf16* in_c[C];
-  const bf16* h_c[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    in_c[c] = in[c];
-    h_c[c] = hs[c];
-  }
-  for (int i = 0; i < a.depth; ++i) {
-    Acc<W> acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c].zero();
-    if (i == 0) {
-      accumulate_chains<W, C>(acc, in_c, LDX, CPAD, a.w[0], w_s);
-      accumulate<W>(acc[0], es, LDG, HEAD, a.we[0], w_s);
-    } else {
-      accumulate_chains<W, C>(acc, h_c, W + SPAD, W, a.w[i], w_s);
-      if ((a.skip_mask >> i) & 1) {
-        accumulate_chains<W, C>(acc, in_c, LDX, CPAD, a.wx[i], w_s);
-        accumulate<W>(acc[0], es, LDG, HEAD, a.we[i], w_s);
-      }
-    }
-    __syncthreads();  // every chain's reads of hs are done
-    epilogue_chains<W, C>(acc, a.b[i], hs, W + SPAD, scratch);
-  }
-}
-
-template <int W, int NT>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(threads_for(FWD_MT), 2)
     warp_fwd_kernel(const __grid_constant__ WarpFwdArgs a) {
-  constexpr int C = NT + 1;
-  constexpr int LDH = W + SPAD;
+  constexpr int MT = FWD_MT;
+  constexpr int THREADS = threads_for(MT);
+  using Ch = Chains<C, MT>;
+  constexpr int LDB = W + RPAD;
+  using P = Pipe<KS, STAGES, w_stage<W, KS>(), false>;
+  using PH = Pipe<W, STAGES, P::STAGE, false>;  // the head: one slice
+  static_assert(W * (HEAD + RPAD) <= P::STAGE, "the head fits in one stage");
+  constexpr bool EARLY = true;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* base = reinterpret_cast<bf16*>(smem);
-  bf16* in[C];
-  bf16* hs[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) in[c] = base + c * BM * LDX;
-  bf16* es = base + C * BM * LDX;
-#pragma unroll
-  for (int c = 0; c < C; ++c) hs[c] = es + BM * LDG + c * BM * LDH;
-  bf16* w_s = es + BM * LDG + C * BM * LDH;
-  float* scratch = reinterpret_cast<float*>(w_s + BK * LDH);
+  bf16* xs = reinterpret_cast<bf16*>(smem);  // every chain's input
+  bf16* es = xs + RBM * LDX;                 // the primal's embedding
+  bf16* h = es + RBM * LDG;                  // every chain's activations
+  bf16* ring = h + RBM * LDB;
+  bf16* bias_s = ring + STAGES * P::STAGE;   // depth x W, then HEAD
 
-  const int row0 = blockIdx.x * BM;
-  const int rows_valid = min(BM, a.n - row0);
-  load_tile<CPAD>(a.x, a.c_in, row0, rows_valid, in[0], LDX);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    load_tile<CPAD>(a.t[j], a.c_in, row0, rows_valid, in[1 + j], LDX);
-  load_tile<HEAD>(a.e, a.f, row0, rows_valid, es, LDG);
-  warp_forward_tile<W, C>(a, in, es, hs, w_s, scratch);
+  const int row0 = blockIdx.x * Ch::RC;  // first row of each chain
+  const int rows_valid = min(Ch::RC, a.n - row0);
+  const int depth = a.depth;
+  auto layer = [&](int i, Seg (&s)[3]) { layer_terms<W>(a, i, xs, es, h, s); };
+  auto head_p = [&](Seg (&s)[1]) { s[0] = Seg{h, LDB, W, a.head_w}; };
 
-  Acc<HEAD> acc[C];
+  {
+    Seg s[3];
+    layer(0, s);
+    begin<W, false, P>(s, ring);
+  }
+  // The biases as one more cp.async group: the first product's closing
+  // wait covers it.
+  for (int v = threadIdx.x; v < depth * W / 8; v += THREADS)
+    cp_async16(bias_s + v * 8, a.b[v * 8 / W] + v * 8 % W, true);
+  if (a.head_b != nullptr && threadIdx.x < HEAD / 8)
+    cp_async16(bias_s + depth * W + threadIdx.x * 8,
+               a.head_b + threadIdx.x * 8, true);
+  cp_async_commit();
+  {
+    // The primal first, then each tangent; the embedding is the primal's.
+    const float* x_src[C] = {a.x + (size_t)row0 * a.c_in};
+    const float* e_src[C] = {a.e + (size_t)row0 * a.f};
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c].zero();
-  const bf16* h_c[C];
+    for (int c = 1; c < C; ++c) x_src[c] = a.t[c - 1] + (size_t)row0 * a.c_in;
+    load_chains<CPAD, THREADS, C, MT>(x_src, a.c_in, rows_valid, xs, LDX);
+    load_chains<HEAD, THREADS, C, MT>(e_src, a.f, rows_valid, es, LDG);
+  }
+
+  for (int i = 0; i < depth; ++i) {
+    Frag<W, MT> acc;
+    acc.zero();
+    {
+      Seg s[3];
+      layer(i, s);
+      run<W, false, P>(acc, s, ring);
+    }
+    then<EARLY>(
+        [&] {
+          if (i < depth - 1) {
+            Seg s[3];
+            layer(i + 1, s);
+            begin<W, false, P>(s, ring);
+          } else {
+            begin_with<HEAD, false, PH, 1>(head_p, ring);
+          }
+        },
+        [&] { epi_fwd<C, false>(acc, bias_s + i * W, h, LDB, nullptr); });
+  }
+  Frag<HEAD, MT> acc;
+  acc.zero();
+  run_with<HEAD, false, PH, 1>(acc, head_p, ring);
+  float* out[C] = {a.out + (size_t)row0 * OUT_COLS};
 #pragma unroll
-  for (int c = 0; c < C; ++c) h_c[c] = hs[c];
-  accumulate_chains<HEAD, C>(acc, h_c, LDH, W, a.head_w, w_s);
-  epilogue_head(acc[0], a.head_b, rows_valid,
-                a.out + (size_t)row0 * OUT_COLS, scratch);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    epilogue_head(acc[1 + j], nullptr, rows_valid,
-                  a.jout[j] + (size_t)row0 * OUT_COLS, scratch);
+  for (int c = 1; c < C; ++c) out[c] = a.jout[c - 1] + (size_t)row0 * OUT_COLS;
+  epi_f32_chains<C>(acc, out, OUT_COLS, OUT_COLS, rows_valid, false,
+                    a.head_b != nullptr ? bias_s + depth * W : nullptr);
+}
+
+template <int W, int C>
+cudaError_t launch_warp_fwd(const WarpFwdArgs& a, cudaStream_t stream) {
+  const size_t smem = warp_fwd_smem_bytes<W>(a.depth);
+  cudaError_t err = cudaFuncSetAttribute(
+      warp_fwd_kernel<W, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  constexpr int RC = RBM / C;
+  warp_fwd_kernel<W, C>
+      <<<(a.n + RC - 1) / RC, threads_for(FWD_MT), smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -174,11 +174,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 extern "C" {
 
 // p (device pointers, null where absent): x, e, t[3], out, jout[3],
-// w[MAXD], wx[MAXD], we[MAXD], b[MAXD], head_w, head_b.
+// w[MAXD], wx[MAXD], we[MAXD], b[MAXD], head_w, head_b. Returns the
+// launch's cudaError_t.
 int warp_train_forward(void* const* p, int n, int c_in, int f, int depth,
                        int skip_mask, int nt, int width, int device,
                        void* stream) {
-  if (n <= 0 || c_in > CPAD || f > HEAD || depth < 1 || depth > MAXD)
+  if ((nt != 0 && nt != MAXT) || width != 128 || n <= 0 || c_in < 1 ||
+      c_in > CPAD || f < 1 || f > HEAD || depth < 1 || depth > MAXD)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -201,13 +203,8 @@ int warp_train_forward(void* const* p, int n, int c_in, int f, int depth,
   a.depth = depth;
   a.skip_mask = skip_mask;
   cudaStream_t s = (cudaStream_t)stream;
-  if (width == 128 && nt == 0)
-    return (int)launch_rows(warp_fwd_kernel<128, 0>, a, n,
-                            warp_smem_bytes<128, 1>(), s);
-  if (width == 128 && nt == 3)
-    return (int)launch_rows(warp_fwd_kernel<128, 3>, a, n,
-                            warp_smem_bytes<128, 4>(), s);
-  return (int)cudaErrorInvalidValue;
+  return (int)(nt == 0 ? launch_warp_fwd<128, 1>(a, s)
+                       : launch_warp_fwd<128, 4>(a, s));
 }
 
 }  // extern "C"

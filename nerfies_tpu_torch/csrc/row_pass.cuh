@@ -482,4 +482,9 @@ __host__ __device__ constexpr int ring_stage() {
                                            : L * (KS + RPAD);
 }
 
+// A ring stage of a product that streams W only, never W^T: KS rows of a
+// (K x L) weight.
+template <int L, int KS>
+__host__ __device__ constexpr int w_stage() { return KS * (L + RPAD); }
+
 }  // namespace

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Times the two serving forward kernels on one CUDA card.
+"""Times the three forward kernels on one CUDA card.
 
 `fused_mlp.nerf_mlp_forward` (with the rgb row bias) and
 `fused_mlp.warp_trunk_forward` (row biases at layer 0 and the skip) at the
 row counts one serving chunk of 8192 rays gives them: 1,048,576 (128
-coarse samples a ray) and 2,097,152 (128 + 128 fine). Bench model widths
-(NeRF 8 x 256, skip 4, rgb branch 128; warp trunk 6 x 128, skip 4), random
-weights and inputs from the seed. Median milliseconds of --reps runs after
-one warm-up, CUDA events.
+coarse samples a ray) and 2,097,152 (128 + 128 fine). Then
+`fused_warp.warp_mlp_forward`, the training warp, at the three launches of
+a bench train step (6144 rays): 786,432 rows with 3 tangents (coarse),
+1,572,864 and 16,384 rows with none (fine, background points). Bench
+model widths (NeRF 8 x 256, skip 4, rgb branch 128; warp trunk 6 x 128,
+skip 4, 8 embedding features), random weights and inputs from the seed.
+Median milliseconds of --reps runs after one warm-up, CUDA events.
 
 It imports the nerfies_tpu_torch package of the checkout that holds this
 script, so a copy of it placed in another checkout's scripts/ times that
@@ -34,8 +37,11 @@ from nerfies_tpu_torch.models import modules
 from nerfies_tpu_torch.models import nerf
 from nerfies_tpu_torch.ops import encoding
 from nerfies_tpu_torch.ops import fused_mlp
+from nerfies_tpu_torch.ops import fused_warp
 
 CHUNK = 8192
+TRAIN_BATCH = 6144
+TRAIN_BACKGROUND_POINTS = 16384
 WARP_ALPHA = 6.0
 
 
@@ -110,6 +116,27 @@ def main(argv=None):
     print(f'warp_trunk_forward rows={n}: {ms:.3f} ms')
     cases.append({'kernel': 'warp_trunk_forward', 'rows': n, 'ms': ms})
     del x, biases, pts
+  # The training warp: a Glorot head under 'head', as chip_smoke.py.
+  train_params = {'trunk': warp['trunk'],
+                  'head': warp_params['branches_wv']}
+  coarse = TRAIN_BATCH * model.num_coarse_samples
+  fine = TRAIN_BATCH * (model.num_coarse_samples + model.num_fine_samples)
+  for n, nt in ((coarse, 3), (fine, 0), (TRAIN_BACKGROUND_POINTS, 0)):
+    pts = randn(n, 3)
+    if nt:
+      x, ts = encoding.posenc_with_tangents(pts, model.num_warp_freqs,
+                                            alpha=WARP_ALPHA)
+    else:
+      x, ts = encoding.posenc(pts, model.num_warp_freqs, alpha=WARP_ALPHA), []
+    e = 0.05 * torch.rand(n, model.num_warp_features, generator=generator,
+                          device=device)
+    ms = time_ms(lambda: fused_warp.warp_mlp_forward(
+        x, e, ts, train_params, trunk_depth=warp_depth, skips=warp_skips),
+                 args.reps)
+    print(f'warp_mlp_forward rows={n} tangents={nt}: {ms:.3f} ms')
+    cases.append({'kernel': 'warp_mlp_forward', 'rows': n, 'tangents': nt,
+                  'ms': ms})
+    del x, ts, e, pts
   print(json.dumps({'device': torch.cuda.get_device_name(0),
                     'cases': cases}))
   return 0

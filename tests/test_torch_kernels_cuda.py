@@ -253,29 +253,6 @@ def test_nerf_backward_chunks_are_deterministic_on_card(cuda_device, widths):
                                rtol=1e-3)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 64, 4099])
-@pytest.mark.parametrize('nt', [0, 3])
-def test_warp_forward_kernel_matches_plain_on_card(cuda_device, n, nt):
-  g = torch.Generator().manual_seed(n + nt)
-  params = _bench_warp(g, cuda_device)
-  x = torch.randn(n, 39, generator=g).to(cuda_device)
-  e = torch.rand(n, 8, generator=g).to(cuda_device)
-  ts = [torch.randn(n, 39, generator=g).to(cuda_device) for _ in range(nt)]
-  before = fused_warp.warp_mlp_forward.launches
-  out, jouts = fused_warp.warp_mlp_forward(x, e, ts, params, trunk_depth=6,
-                                           skips=(4,))
-  torch.cuda.synchronize()
-  assert fused_warp.warp_mlp_forward.launches == before + 1
-  want_out, want_jouts = fused_warp.warp_mlp_reference(
-      x, e, ts, params, trunk_depth=6, skips=(4,))
-  torch.testing.assert_close(out, want_out, atol=ATOL, rtol=RTOL)
-  assert len(jouts) == nt
-  for got_j, want_j in zip(jouts, want_jouts):
-    # The tangent chains take the primal's ReLU mask: flips show here too.
-    _assert_rows_close(got_j, want_j)
-
-
 def _warp_inputs(generator, device, n, nt):
   x = torch.randn(n, 39, generator=generator).to(device)
   e = torch.rand(n, 8, generator=generator).to(device)
@@ -283,6 +260,73 @@ def _warp_inputs(generator, device, n, nt):
   go = torch.randn(n, 8, generator=generator).to(device)
   gjs = [torch.randn(n, 8, generator=generator).to(device) for _ in range(nt)]
   return x, e, ts, go, gjs
+
+
+def _assert_warp_forward_close(got, x, e, ts, params):
+  out, jouts = got
+  want_out, want_jouts = fused_warp.warp_mlp_reference(
+      x, e, ts, params, trunk_depth=6, skips=(4,))
+  torch.testing.assert_close(out, want_out, atol=ATOL, rtol=RTOL)
+  assert len(jouts) == len(ts)
+  for got_j, want_j in zip(jouts, want_jouts):
+    # The tangent chains take the primal's ReLU mask: flips show here too.
+    _assert_rows_close(got_j, want_j)
+
+
+# A block owns 128 rows with no tangents and 32 of each chain with 3: 31,
+# 32, 33, 127, 128, 129 and 257 sit at its edges.
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 31, 32, 33, 64, 100, 127, 128, 129, 257,
+                               4099])
+@pytest.mark.parametrize('nt', [0, 3])
+def test_warp_forward_kernel_matches_plain_on_card(cuda_device, n, nt):
+  g = torch.Generator().manual_seed(n + nt)
+  params = _bench_warp(g, cuda_device)
+  x, e, ts = _warp_inputs(g, cuda_device, n, nt)[:3]
+  before = fused_warp.warp_mlp_forward.launches
+  got = fused_warp.warp_mlp_forward(x, e, ts, params, trunk_depth=6,
+                                    skips=(4,))
+  torch.cuda.synchronize()
+  assert fused_warp.warp_mlp_forward.launches == before + 1
+  _assert_warp_forward_close(got, x, e, ts, params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nt', [0, 3])
+def test_warp_forward_kernel_is_deterministic_on_card(cuda_device, nt):
+  g = torch.Generator().manual_seed(8 + nt)
+  params = _bench_warp(g, cuda_device)
+  x, e, ts = _warp_inputs(g, cuda_device, 4099, nt)[:3]
+  runs = [fused_warp.warp_mlp_forward(x, e, ts, params, trunk_depth=6,
+                                      skips=(4,)) for _ in range(2)]
+  torch.cuda.synchronize()
+  assert torch.equal(runs[0][0], runs[1][0])
+  for first, second in zip(runs[0][1], runs[1][1]):
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_warp_forward_head_bias_reaches_the_primal_only_on_card(cuda_device):
+  g = torch.Generator().manual_seed(9)
+  params = _bench_warp(g, cuda_device)
+  x, e, ts = _warp_inputs(g, cuda_device, 1000, 3)[:3]
+  bias = torch.randn(6, generator=g).to(cuda_device)
+  with_bias = {'trunk': params['trunk'], 'head': {'logit': {
+      'kernel': params['head']['logit']['kernel'], 'bias': bias}}}
+  without = {'trunk': params['trunk'], 'head': {'logit': {
+      'kernel': params['head']['logit']['kernel'],
+      'bias': torch.zeros_like(bias)}}}
+  kw = dict(trunk_depth=6, skips=(4,))
+  got = fused_warp.warp_mlp_forward(x, e, ts, with_bias, **kw)
+  base = fused_warp.warp_mlp_forward(x, e, ts, without, **kw)
+  torch.cuda.synchronize()
+  _assert_warp_forward_close(got, x, e, ts, with_bias)
+  # The same sums in the same order: the bias is all that differs.
+  want = bias.to(torch.bfloat16).float()
+  torch.testing.assert_close(got[0][:, :6] - base[0][:, :6],
+                             want.expand(1000, 6), atol=1e-5, rtol=0)
+  for got_j, base_j in zip(got[1], base[1]):
+    assert torch.equal(got_j, base_j)
 
 
 def _assert_warp_backward_close(got, want, need_dx):
