@@ -51,6 +51,20 @@ non-zero exit at the first phase that fails:
            ids and noise; stats at rtol 0.05, atol 5e-4 and each param's
            gradient (the first Adam moment, 0.1 x gradient) at cosine >
            0.95 and norm ratio in (0.7, 1.4), as tests/test_fused_train.py.
+  cli      write a synthetic capture with nerfies_tpu_torch.datasets.synthetic
+           (16 train and 2 val frames of 480x272 at scale 1: 2,088,960
+           rays in the pool; 16,384 background points) and train it with
+           the training CLI, nerfies_tpu_torch.train.main, on
+           configs/tpu_vrig_paper.gin at full width (image scale 1): 7
+           steps, then a second run to step 10 that resumes from the
+           checkpoint of step 7. Require finite stats, the restored state
+           equal bit for bit to the saved one, 2 checkpoints kept and the
+           launch counts of the train phase per step, with the counts set
+           to 0 just before the first run and read just after the second;
+           print the CLI's median train_step and data times, its rays/s,
+           the gap to the train phase's median step, one frame's PNG
+           decode, the ray pool's build (and the same pool built in one
+           thread) and checkpoint save and restore.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -61,8 +75,11 @@ Usage: python3 chip_smoke.py [--seed 0]
 import argparse
 import dataclasses
 import json
+import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,6 +87,10 @@ import torch
 
 from nerfies_tpu_torch import configs
 from nerfies_tpu_torch import evaluation
+from nerfies_tpu_torch import image_utils
+from nerfies_tpu_torch import train as train_cli
+from nerfies_tpu_torch.datasets import core
+from nerfies_tpu_torch.datasets import synthetic
 from nerfies_tpu_torch.models import modules
 from nerfies_tpu_torch.models import nerf
 from nerfies_tpu_torch.ops import _build
@@ -105,6 +126,17 @@ TRAIN_STEPS = 3
 OTHER_NERF_WIDTHS = ((128, 128), (32, 128))
 OTHER_WIDTH_ROWS = 131072 + 37
 PARITY_TRAIN_RAYS = 128
+# The cli phase: a capture of 16 + 2 frames of 480x272, trained with
+# configs/tpu_vrig_paper.gin for CLI_FIRST_STEPS steps, then resumed to
+# CLI_LAST_STEP, a checkpoint every CLI_SAVE_EVERY steps.
+CLI_GIN = 'configs/tpu_vrig_paper.gin'
+CLI_FRAMES = (16, 2)
+CLI_IMAGE_SIZE = (480, 272)
+CLI_POINTS = 16384
+CLI_FIRST_STEPS, CLI_LAST_STEP, CLI_SAVE_EVERY = 7, 10, 4
+TRAIN_STEP_LAUNCHES = {'nerf_mlp_forward': 2, 'nerf_mlp_backward': 2,
+                       'warp_mlp_forward': 3, 'warp_mlp_backward': 3,
+                       'warp_trunk_forward': 0}
 PARITY_BACKGROUND_POINTS = 2048
 STATS_RTOL, STATS_ATOL = 0.05, 5e-4
 GRAD_COSINE, GRAD_NORM_RATIO = 0.95, (0.7, 1.4)
@@ -892,11 +924,8 @@ def phase_train(seed, device=torch.device('cuda', 0)):
     times.append((time.perf_counter() - start) * 1e3)
   counts = fused_mlp.launch_counts()
   peak_gb = torch.cuda.max_memory_allocated() / 2**30
-  per_step = {'nerf_mlp_forward': 2, 'nerf_mlp_backward': 2,
-              'warp_mlp_forward': 3, 'warp_mlp_backward': 3,
-              'warp_trunk_forward': 0}
   print(f'  launches in {TRAIN_STEPS} steps: {counts}')
-  for name, want in per_step.items():
+  for name, want in TRAIN_STEP_LAUNCHES.items():
     check(counts[name] == want * TRAIN_STEPS,
           f'{name}: {counts[name]} launches in {TRAIN_STEPS} steps, expected '
           f'{want * TRAIN_STEPS}')
@@ -981,6 +1010,121 @@ def phase_train_parity(seed, device=torch.device('cuda', 0)):
               'gradients (card vs cpu)')
 
 
+def card_label():
+  """The card's name and power limit, as nvidia-smi reads them."""
+  smi = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, timeout=60, check=True)
+  return smi.stdout.strip().splitlines()[0]
+
+
+def _same_state(got, want):
+  """Whether two TrainStates are equal bit for bit."""
+  def leaves(state):
+    return dict(_flat_tree({'params': state.params, 'mu': state.opt_state.mu,
+                            'nu': state.opt_state.nu}))
+  a, b = leaves(got), leaves(want)
+  return ((got.step, got.opt_state.count, got.warp_alpha, got.time_alpha)
+          == (want.step, want.opt_state.count, want.warp_alpha,
+              want.time_alpha)
+          and a.keys() == b.keys()
+          and all(torch.equal(a[k], b[k]) for k in b))
+
+
+def phase_cli(train_step_ms):
+  """The training CLI on a synthetic capture, run, saved and resumed."""
+  card = card_label()
+  work = pathlib.Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
+  try:
+    scene, exp = work / 'scene', work / 'exp'
+    start = time.perf_counter()
+    synthetic.write_synthetic_dataset(
+        scene, num_train=CLI_FRAMES[0], num_val=CLI_FRAMES[1],
+        image_size=CLI_IMAGE_SIZE, num_points=CLI_POINTS,
+        motion_amplitude=0.05, texture_frequency=8.0, env_background=True)
+    print(f'  wrote the capture in {time.perf_counter() - start:.2f} s')
+    frame = scene / 'rgb' / '1x' / '0000.png'
+    decode = []
+    for _ in range(3):
+      start = time.perf_counter()
+      image_utils.load_image(frame)
+      decode.append(time.perf_counter() - start)
+
+    def run(max_steps):
+      argv = ['--base_folder', str(exp), '--data_dir', str(scene),
+              '--gin_configs', CLI_GIN]
+      for binding in ('ExperimentConfig.image_scale = 1',
+                      f'TrainConfig.max_steps = {max_steps}',
+                      f'TrainConfig.save_every = {CLI_SAVE_EVERY}',
+                      'TrainConfig.print_every = 1',
+                      'TrainConfig.log_every = 1000000',
+                      'TrainConfig.histogram_every = 1000000'):
+        argv += ['--gin_bindings', binding]
+      return train_cli.main(argv)
+
+    def kept():
+      return sorted(int(p.name) for p in (exp / 'checkpoints').iterdir())
+
+    fused_mlp.reset_launch_counts()
+    first = run(CLI_FIRST_STEPS)
+    check(first.setup.init_step == 1 and first.state.step == CLI_FIRST_STEPS,
+          f'first run: steps {first.setup.init_step}..{first.state.step}')
+    check(kept() == [CLI_SAVE_EVERY, CLI_FIRST_STEPS],
+          f'checkpoints after the first run: {kept()}')
+    second = run(CLI_LAST_STEP)
+    counts = fused_mlp.launch_counts()
+    check(second.setup.init_step == CLI_FIRST_STEPS + 1,
+          f'the second run starts at {second.setup.init_step}, not at '
+          f'{CLI_FIRST_STEPS + 1}')
+    check(_same_state(second.setup.state, first.state),
+          'the restored state differs from the saved one')
+    print(f'  resumed at step {second.setup.init_step}; the restored state '
+          'equals the saved one bit for bit')
+    # Saved at 8 (save_every) and 10 (the end); the 2 newest are kept.
+    check(kept() == [8, CLI_LAST_STEP],
+          f'checkpoints after the second run: {kept()}')
+    print(f'  checkpoints kept: {kept()}')
+    for result in (first, second):
+      for key, value in _flat_tree(result.stats):
+        check(np.isfinite(value), f'cli stat {key} is {value}')
+    print('  stats of the last step: ' + ', '.join(
+        f'{k} {v:.5g}' for k, v in _flat_tree(second.stats)))
+    print(f'  launches in {CLI_LAST_STEP} CLI steps: {counts}')
+    for name, want in TRAIN_STEP_LAUNCHES.items():
+      check(counts[name] == want * CLI_LAST_STEP,
+            f'{name}: {counts[name]} launches in {CLI_LAST_STEP} CLI steps, '
+            f'expected {want * CLI_LAST_STEP}')
+
+    batch = first.setup.train_config.batch_size
+    step_s = [v for r in (first, second)
+              for v in r.time_tracker.values('train_step')]
+    data_s = [v for r in (first, second) for v in r.time_tracker.values('data')]
+    step_ms = float(np.median(step_s)) * 1e3
+    print(f'  [{card}] CLI train_step median {step_ms:.2f} ms over '
+          f'{len(step_s)} steps ({[round(v * 1e3, 2) for v in step_s]}), '
+          f'{batch / step_ms * 1e3:.1f} rays/s; data median '
+          f'{float(np.median(data_s)) * 1e3:.2f} ms '
+          f'({[round(v * 1e3, 2) for v in data_s]})')
+    print(f'  [{card}] gap to the train phase: {step_ms - train_step_ms:.2f} '
+          f'ms a step ({step_ms:.2f} against {train_step_ms:.2f} ms)')
+    # The same pool built in one thread, beside the CLI's thread pool.
+    source = first.setup.datasource
+    start = time.perf_counter()
+    core.RayPool.from_items([source.get_item(i) for i in source.train_ids])
+    one_thread_s = time.perf_counter() - start
+    print(f'  [{card}] PNG decode of one {CLI_IMAGE_SIZE[0]}x'
+          f'{CLI_IMAGE_SIZE[1]} frame: {min(decode) * 1e3:.2f} ms (best of '
+          f'3); ray pool of {CLI_FRAMES[0]} frames built in '
+          f'{first.setup.timings["ray_pool"]:.2f} s by the CLI\'s thread '
+          f'pool, {one_thread_s:.2f} s in one thread')
+    saves_ms = [v * 1e3 for r in (first, second) for v in r.save_seconds]
+    print(f'  [{card}] checkpoint save {[round(v, 1) for v in saves_ms]} ms, '
+          f'restore {second.setup.timings["restore"] * 1e3:.1f} ms')
+  finally:
+    shutil.rmtree(work, ignore_errors=True)
+  return counts
+
+
 def _tree_to(tree, device):
   return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
           for k, v in tree.items()}
@@ -1022,8 +1166,9 @@ def main(argv=None):
     serve_counts, first_request = run_phase(
         'serve', phase_serve, model, state, np.random.RandomState(args.seed))
     run_phase('parity', phase_parity, model, state, first_request)
-    train_counts, _ = run_phase('train', phase_train, args.seed)
+    train_counts, train_numbers = run_phase('train', phase_train, args.seed)
     run_phase('train_parity', phase_train_parity, args.seed)
+    cli_counts = run_phase('cli', phase_cli, train_numbers['step_ms'])
   except Exception as e:  # report the failing phase, then fail the run
     print(f'FAILED: {type(e).__name__}: {e}', file=sys.stderr, flush=True)
     raise
@@ -1043,7 +1188,8 @@ def main(argv=None):
   for name, (source, replaces) in sources.items():
     k = kernels[name]
     by_path = {'serve': serve_counts.get(name, 0),
-               'train': train_counts.get(name, 0)}
+               'train': train_counts.get(name, 0),
+               'cli': cli_counts.get(name, 0)}
     lines.append({
         'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
         'launches': sum(by_path.values()), 'launches_by_path': by_path,

@@ -11,12 +11,15 @@ tensor and through their plain PyTorch versions on a CPU tensor:
 - training: `training.make_train_step` runs `fused_train.model_forward`,
   whose NeRF MLP and warp trunk are autograd Functions over the forward
   and backward kernels of `csrc/fused_mlp.cu`, `csrc/fused_mlp_bwd.cu`,
-  `csrc/fused_warp.cu` and `csrc/weight_grad.cu` (`ops/fused_mlp.py`,
-  `ops/fused_warp.py`).
+  `csrc/fused_warp.cu`, `csrc/fused_warp_bwd.cu` and `csrc/weight_grad.cu`
+  (`ops/fused_mlp.py`, `ops/fused_warp.py`). The training CLI,
+  `python -m nerfies_tpu_torch.train` (`train.py`), drives it over a
+  Nerfies capture with gin configs (`minigin.py`, `configs.py`),
+  schedules, the data pipeline (`datasets/`) and checkpoints.
 
-Entry points take `device=` and default to 'cuda'. Without a card they
-raise unless the caller passes device='cpu'; they never move to the CPU
-on their own.
+Entry points take `device=` (the CLI `--device`) and default to 'cuda'.
+Without a card they raise unless the caller passes device='cpu'; they
+never move to the CPU on their own.
 """
 
 import torch

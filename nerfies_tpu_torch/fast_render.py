@@ -25,10 +25,13 @@ from nerfies_tpu_torch.ops import rigid
 
 
 def supported(model) -> bool:
-  """Whether the fused render path covers this model architecture."""
+  """Whether the fused render path covers this model architecture.
+
+  `model` is a NerfModel or a ModelConfig (which has no encoded metadata).
+  """
   if model.use_trunk_condition:
     return False
-  if model.metadata_encoded:
+  if getattr(model, 'metadata_encoded', False):
     return False
   if model.use_warp and model.warp_metadata_encoder_type != 'glo':
     return False

@@ -39,6 +39,40 @@ def supported(model) -> bool:
   return fast_render.supported(model)
 
 
+def check_trainable(model) -> None:
+  """Refuses a model or ModelConfig that JAX would not train fused.
+
+  The JAX train step runs fused_train.model_forward only when
+  `use_fused_mlp` and `supported(model)` hold (nerfies_tpu/training.py:
+  277), whatever `use_bfloat16` says; otherwise it runs the Flax forward,
+  `model.apply`, which the port lacks (ROADMAP Queue 1 item 8).
+  `use_fused_warp=False` sends the warp through the Flax module, so it is
+  refused too. An `activation` other than relu is refused as well: the
+  kernels apply ReLU between layers, and JAX's fused path trains such a
+  config with ReLU, ignoring the field.
+
+  Raises:
+    NotImplementedError: saying which switch asks for another path.
+  """
+  reasons = []
+  if not model.use_fused_mlp:
+    reasons.append('use_fused_mlp is False')
+  elif not supported(model):
+    reasons.append('fused_train.supported(model) is False')
+  if model.use_warp and not model.use_fused_warp:
+    reasons.append('use_fused_warp is False (the Flax warp module)')
+  if reasons:
+    raise NotImplementedError(
+        'the JAX train step runs this config through model.apply, the Flax '
+        'forward, which is not ported (ROADMAP Queue 1 item 8): '
+        + '; '.join(reasons))
+  if model.activation != 'relu':
+    raise NotImplementedError(
+        f'activation {model.activation!r}: the fused kernels apply relu '
+        'between layers (the JAX fused path ignores the field); another '
+        'activation needs the Flax forward (ROADMAP Queue 1 item 8)')
+
+
 def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return a.to(torch.bfloat16) @ b.to(torch.bfloat16)
 

@@ -15,8 +15,10 @@ key instead, so the two draw different numbers.
 
 Not ported yet: the gathered-median elastic path (`_median_jacobian`,
 used when the model computes no dense Jacobian) raises
-NotImplementedError; schedules, checkpoints and the mesh-sharded step
-wait for their own slices.
+NotImplementedError, and the mesh-sharded step waits for its own slice.
+The training CLI (train.py) drives `make_train_step` with the schedules
+(schedules.py), the data pipeline (datasets/) and checkpoints
+(checkpoints.py).
 """
 
 import dataclasses
@@ -321,6 +323,16 @@ def train_step(model,
                              opt_state=new_opt_state), stats
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+  """The random stream of one step: a generator on `device` seeded from
+  (seed, step), the counterpart of `random.fold_in(rng, step)`.
+
+  A run resumed at a step draws there what an unbroken run draws.
+  """
+  mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(step)) % (1 << 63)
+  return torch.Generator(device).manual_seed(mixed)
+
+
 def make_train_step(model, train_config, device='cuda'):
   """The step of `train_step` with the config's loss switches bound.
 
@@ -329,8 +341,13 @@ def make_train_step(model, train_config, device='cuda'):
   background_draws=None) -> (new_state, stats), which moves the batch
   (numpy arrays or tensors) to `device` first. The state's params must
   already lie there. Runs on the card unless told device='cpu'.
+
+  Raises:
+    NotImplementedError: for a model that JAX trains through model.apply
+      (fused_train.check_trainable).
   """
   device = resolve_device(device)
+  fused_train.check_trainable(model)
 
   def step(generator, state, batch, scalar_params, background_draws=None):
     return train_step(

@@ -1,0 +1,93 @@
+"""Host-side helpers of the training loop: a thread-pool map and meters.
+
+Port of the parts of nerfies_tpu/utils.py that the training CLI uses:
+`parallel_map`, `ValueMeter` and `TimeTracker`. The camera-path and
+latent-code interpolation wait for the eval and video slice.
+"""
+
+import collections
+import contextlib
+import time
+from concurrent import futures
+
+import numpy as np
+
+
+def parallel_map(f, iterable, max_threads=None, show_pbar=False, **kwargs):
+  """Thread-pool version of map()."""
+  with futures.ThreadPoolExecutor(max_threads) as executor:
+    results = executor.map(f, iterable, **kwargs)
+    if show_pbar:
+      try:
+        import tqdm
+        results = tqdm.tqdm(results, total=len(iterable))
+      except ImportError:
+        pass
+    return list(results)
+
+
+class ValueMeter:
+  """Tracks running statistics of a scalar stream."""
+
+  def __init__(self):
+    self._values = []
+
+  def reset(self):
+    self._values.clear()
+
+  def update(self, value):
+    self._values.append(value)
+
+  def reduce(self, reduction='mean'):
+    if reduction == 'mean':
+      return np.mean(self._values)
+    if reduction == 'std':
+      return np.std(self._values)
+    if reduction == 'last':
+      return self._values[-1]
+    raise ValueError(f'Unknown reduction {reduction}')
+
+
+class TimeTracker:
+  """tic/toc wall-clock buckets with steps/sec summaries."""
+
+  def __init__(self):
+    self._meters = collections.defaultdict(ValueMeter)
+    self._marked_time = collections.defaultdict(float)
+
+  @contextlib.contextmanager
+  def record_time(self, key: str):
+    start = time.time()
+    yield
+    self.update(key, time.time() - start)
+
+  def update(self, key, value):
+    self._meters[key].update(value)
+
+  def tic(self, *args):
+    for key in args:
+      self._marked_time[key] = time.time()
+
+  def toc(self, *args):
+    for key in args:
+      self.update(key, time.time() - self._marked_time[key])
+      del self._marked_time[key]
+
+  def reset(self):
+    for meter in self._meters.values():
+      meter.reset()
+
+  def values(self, key):
+    """The times recorded under `key` since the last reset."""
+    return list(self._meters[key]._values)
+
+  def summary(self, reduction='mean'):
+    time_dict = {k: v.reduce(reduction) for k, v in self._meters.items()}
+    if 'total' not in time_dict:
+      time_dict['total'] = sum(time_dict.values())
+    time_dict['steps_per_sec'] = 1.0 / max(time_dict['total'], 1e-12)
+    return time_dict
+
+  def summary_str(self, reduction='mean'):
+    return ', '.join(
+        f'{k}={v:.04f}' for k, v in self.summary(reduction).items())

@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, Flax or nerfies_tpu, and no silent CPU runs."""
+"""The port stands alone: no JAX, Flax, nerfies_tpu, absl, TensorFlow, cv2 or
+PIL, and no silent CPU runs."""
 
 import ast
 import os
@@ -20,7 +21,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / 'nerfies_tpu_torch').rglob('*.py')) + [
     REPO / 'chip_smoke.py', REPO / 'scripts' / 'time_warp_backward.py',
     REPO / 'scripts' / 'time_forwards.py']
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nerfies_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nerfies_tpu', 'absl',
+             'tensorflow', 'cv2', 'PIL')
+# Absent at import time too: fsspec is imported only for a cloud path.
+BLOCKED_AT_IMPORT = FORBIDDEN + ('fsspec',)
 
 
 def _imported_roots(path):
@@ -52,7 +56,7 @@ def _python(code_or_args, cwd, extra_env=None):
 def test_every_module_imports_without_jax():
   code = '\n'.join([
       'import sys',
-      f'for name in {FORBIDDEN!r}:',
+      f'for name in {BLOCKED_AT_IMPORT!r}:',
       '  sys.modules[name] = None',
       'import importlib, pkgutil',
       'import nerfies_tpu_torch',
@@ -65,7 +69,7 @@ def test_every_module_imports_without_jax():
   ])
   proc = _python(code, cwd=REPO)
   assert proc.returncode == 0, proc.stderr
-  assert int(proc.stdout.split()[-1]) >= 14
+  assert int(proc.stdout.split()[-1]) >= 26
 
 
 def _small_config():

@@ -88,7 +88,8 @@ def port_model(field='se3', warp_kwargs=None):
       warp_kwargs=warp_kwargs or {'trunk_depth': 3, 'skips': (2,)},
       use_appearance_metadata=True, use_alpha_condition=True,
       use_rgb_condition=True, sigma_activation='softplus',
-      use_stratified_sampling=False, noise_std=None)
+      use_stratified_sampling=False, noise_std=None, use_bfloat16=True,
+      use_fused_mlp=True)
   model, _ = nerf.construct_nerf(
       config, appearance_ids=(0, 1), camera_ids=(0,), warp_ids=(0, 1),
       near=0.5, far=3.0, device='cpu', use_warp_jacobian=True,
