@@ -64,7 +64,33 @@ non-zero exit at the first phase that fails:
            print the CLI's median train_step and data times, its rays/s,
            the gap to the train phase's median step, one frame's PNG
            decode, the ray pool's build (and the same pool built in one
-           thread) and checkpoint save and restore.
+           thread) and checkpoint save and restore. The capture and the
+           experiment stay for the eval phase.
+  eval     evaluate the cli phase's step-10 checkpoint with the eval CLI,
+           nerfies_tpu_torch.eval.main (eval_once; 2 val, 2 train and 2
+           test cameras; chunk 8192; renders rotated to 1 checkpoint), once
+           unculled and once with --fast_preview (32 + 64 samples culled to
+           16 + 32 through a 128^3 occupancy bake). Require finite PSNR,
+           MS-SSIM and lpips_uncal, the PNGs written, a stale render
+           directory rotated away, and launches of nerf_mlp_forward and
+           warp_trunk_forward that match frames x chunks x 2 levels (+ the
+           bake's chunks) and none of a training kernel, with the counts set
+           to 0 just before each run and read just after. Print each frame's
+           render_time and rays/s, the bake's seconds and occupied share and
+           the val metrics. Render the capture's orbit-mild path with
+           the render-video CLI (6 PNG frames). Then, at the full-width
+           model: render_camera against render_image of host-built rays
+           for one val camera
+           (atol 0.02, rtol 0.05); an all-occupied grid keeping every sample
+           against the unculled render (atol 1e-5); MS-SSIM of the smooth
+           pair of tests/test_evaluation.py:198 at or below 1 and within
+           1e-4 of the CPU's; LPIPS of a val render within 1e-3 (relative)
+           of the CPU's; and the two serving kernels against their plain
+           versions and timed at the eval path's rows (the culled levels'
+           131,072 and 262,144, the bake's 262,144 without an rgb row bias,
+           the culled path's warp at 262,144 and 655,360). A frame is
+           profiled unculled and culled, and culled at 8 times the chunk:
+           wall and device-busy ms, idle share, device ops, largest ops.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -85,19 +111,27 @@ import time
 import numpy as np
 import torch
 
+from nerfies_tpu_torch import checkpoints
 from nerfies_tpu_torch import configs
+from nerfies_tpu_torch import datasets
+from nerfies_tpu_torch import eval as eval_cli
 from nerfies_tpu_torch import evaluation
 from nerfies_tpu_torch import image_utils
+from nerfies_tpu_torch import lpips
+from nerfies_tpu_torch import occupancy
+from nerfies_tpu_torch import render_video
+from nerfies_tpu_torch import schedules
 from nerfies_tpu_torch import train as train_cli
+from nerfies_tpu_torch import training
 from nerfies_tpu_torch.datasets import core
 from nerfies_tpu_torch.datasets import synthetic
 from nerfies_tpu_torch.models import modules
 from nerfies_tpu_torch.models import nerf
 from nerfies_tpu_torch.ops import _build
-from nerfies_tpu_torch import training
 from nerfies_tpu_torch.ops import encoding
 from nerfies_tpu_torch.ops import fused_mlp
 from nerfies_tpu_torch.ops import fused_warp
+from nerfies_tpu_torch.ops import ssim
 
 KERNEL_ATOL = KERNEL_RTOL = 0.05
 RENDER_ATOL, RENDER_RTOL = 0.02, 0.05
@@ -137,6 +171,21 @@ CLI_FIRST_STEPS, CLI_LAST_STEP, CLI_SAVE_EVERY = 7, 10, 4
 TRAIN_STEP_LAUNCHES = {'nerf_mlp_forward': 2, 'nerf_mlp_backward': 2,
                        'warp_mlp_forward': 3, 'warp_mlp_backward': 3,
                        'warp_trunk_forward': 0}
+# The eval phase: nerfies_tpu_torch.eval on the cli phase's experiment,
+# once unculled and once with --fast_preview (32 + 64 samples culled to
+# 16 + 32, a 128^3 bake in chunks of 262,144 voxels).
+EVAL_BINDINGS = ('ExperimentConfig.image_scale = 1',
+                 'EvalConfig.eval_once = True', 'EvalConfig.num_val_eval = 2',
+                 'EvalConfig.num_train_eval = 2',
+                 'EvalConfig.num_test_eval = 2', f'EvalConfig.chunk = {CHUNK}',
+                 'EvalConfig.max_render_checkpoints = 1')
+EVAL_BAKE_CHUNK = 262144  # occupancy.build_grid's chunk
+PREVIEW_SAMPLES, CULLED_KEEP = (32, 64), (16, 32)
+CULL_NOOP_ATOL = 1e-5
+# A culled frame is also profiled at 8 times the chunk: 2 chunks a frame.
+PROFILE_BIG_CHUNK = 8 * CHUNK
+MSSSIM_CPU_ATOL = 1e-4
+LPIPS_CPU_RTOL = 1e-3
 PARITY_BACKGROUND_POINTS = 2048
 STATS_RTOL, STATS_ATOL = 0.05, 5e-4
 GRAD_COSINE, GRAD_NORM_RATIO = 0.95, (0.7, 1.4)
@@ -332,8 +381,13 @@ def operand_bytes(ops):
   return total
 
 
-def _kernel_cases(model, device, generator):
-  """Yields each kernel case at the model's widths and the serving rows."""
+def _kernel_cases(model, device, generator, nerf_rows=None, warp_rows=None):
+  """Yields each kernel case at the model's widths.
+
+  `nerf_rows` [(rows, with an rgb row bias)] and `warp_rows` [rows]
+  default to the serving rows: a chunk's rays times 128 coarse samples or
+  256 fine ones, and a ragged count.
+  """
   params = model.params
   mlp = params['nerf_mlps_coarse']
   nerf_ops = fused_mlp.pack_nerf_mlp(
@@ -370,12 +424,14 @@ def _kernel_cases(model, device, generator):
   def randn(*shape):
     return torch.randn(*shape, generator=generator, device=device)
 
-  # Rows per launch while serving: a chunk's rays times 128 coarse samples
-  # or 256 fine ones; and a ragged count.
   coarse = CHUNK * model.num_coarse_samples
   fine = CHUNK * (model.num_coarse_samples + model.num_fine_samples)
-  for n, with_bias in ((coarse, False), (coarse, True), (coarse + 37, True),
-                       (fine, True)):
+  if nerf_rows is None:
+    nerf_rows = ((coarse, False), (coarse, True), (coarse + 37, True),
+                 (fine, True))
+  if warp_rows is None:
+    warp_rows = (coarse, coarse + 37, fine)
+  for n, with_bias in nerf_rows:
     x = encoding.posenc(randn(n, 3), model.num_nerf_point_freqs)
     rb = randn(n, rgb_width).to(torch.bfloat16) if with_bias else None
     check(x.shape[1] == c_pe, 'encoding width')
@@ -391,7 +447,7 @@ def _kernel_cases(model, device, generator):
             x, rb, nerf_ops, model.nerf_trunk_depth),
         bytes=nbytes(x, rb) + operand_bytes(nerf_ops) + 2 * n * 8 * 4,
         flops=2 * nerf_macs * n)
-  for n in (coarse, coarse + 37, fine):
+  for n in warp_rows:
     x = encoding.posenc(randn(n, 3), model.num_warp_freqs, alpha=WARP_ALPHA)
     check(x.shape[1] == c_warp, 'warp encoding width')
     biases = [(i, randn(n, warp_ops.width).to(torch.bfloat16))
@@ -409,6 +465,40 @@ def _kernel_cases(model, device, generator):
         flops=2 * warp_macs * n)
 
 
+def _run_case(case, device_name):
+  """Holds a kernel case against its plain version and times all three.
+
+  Returns its max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by.
+  """
+  peak_flops, peak_bytes = peaks(device_name)
+  got = case['kernel']()
+  torch.cuda.synchronize()
+  want = case['plain']()
+  err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+  ok = all(torch.allclose(g, w, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
+           for g, w in zip(got, want))
+  lib_err = max(float((g - w).abs().max())
+                for g, w in zip(case['library'](), want))
+  del got, want
+  ms = time_ms(case['kernel'], reps=5)
+  plain_ms = time_ms(case['plain'], reps=3)
+  library_ms = time_ms(case['library'], reps=5)
+  flop_ms = case['flops'] / peak_flops * 1e3
+  byte_ms = case['bytes'] / peak_bytes * 1e3
+  bound_ms = max(flop_ms, byte_ms)
+  print(f"  {case['name']} rows={case['rows']} bias={case['with_bias']}: "
+        f'max_abs_err {err:.3g} (library {lib_err:.3g}), within '
+        f'atol=rtol={KERNEL_ATOL}: {ok}; {ms:.3f} ms kernel, '
+        f'{plain_ms:.3f} ms plain, {library_ms:.3f} ms library, bound '
+        f'{bound_ms:.3f} ms ({flop_ms:.3f} ms ops, {byte_ms:.3f} ms bytes),'
+        f' {case["flops"] / ms / 1e9:.1f} TFLOP/s')
+  check(ok, f"{case['name']} rows={case['rows']} disagrees with its plain "
+        f'version: max_abs_err {err}')
+  return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+              library_ms=library_ms, bound_ms=bound_ms,
+              bound_by='operations' if flop_ms >= byte_ms else 'bytes')
+
+
 @torch.no_grad()
 def phase_kernels(model, device, generator, device_name):
   peak_flops, peak_bytes = peaks(device_name)
@@ -417,39 +507,18 @@ def phase_kernels(model, device, generator, device_name):
   results = {}
   fine_rows = CHUNK * (model.num_coarse_samples + model.num_fine_samples)
   for case in _kernel_cases(model, device, generator):
-    got = case['kernel']()
-    torch.cuda.synchronize()
-    want = case['plain']()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    ok = all(torch.allclose(g, w, atol=KERNEL_ATOL, rtol=KERNEL_RTOL)
-             for g, w in zip(got, want))
-    lib_err = max(float((g - w).abs().max())
-                  for g, w in zip(case['library'](), want))
-    del got, want
-    ms = time_ms(case['kernel'], reps=5)
-    plain_ms = time_ms(case['plain'], reps=3)
-    library_ms = time_ms(case['library'], reps=5)
-    flop_ms = case['flops'] / peak_flops * 1e3
-    byte_ms = case['bytes'] / peak_bytes * 1e3
-    bound_ms = max(flop_ms, byte_ms)
-    print(f"  {case['name']} rows={case['rows']} bias={case['with_bias']}: "
-          f'max_abs_err {err:.3g} (library {lib_err:.3g}), within '
-          f'atol=rtol={KERNEL_ATOL}: {ok}; {ms:.3f} ms kernel, '
-          f'{plain_ms:.3f} ms plain, {library_ms:.3f} ms library, bound '
-          f'{bound_ms:.3f} ms ({flop_ms:.3f} ms ops, {byte_ms:.3f} ms bytes),'
-          f' {case["flops"] / ms / 1e9:.1f} TFLOP/s')
-    check(ok, f"{case['name']} rows={case['rows']} disagrees with its plain "
-          f'version: max_abs_err {err}')
+    numbers = _run_case(case, device_name)
     entry = results.setdefault(case['name'], {'max_abs_err': 0.0})
-    entry['max_abs_err'] = max(entry['max_abs_err'], err)
+    entry['max_abs_err'] = max(entry['max_abs_err'], numbers['max_abs_err'])
     if case['rows'] == CHUNK * model.num_coarse_samples and case['with_bias']:
       # The coarse level's launch: the numbers the kernel line reports.
-      entry.update(rows=case['rows'], ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by='operations' if flop_ms >= byte_ms else 'bytes')
+      entry.update(rows=case['rows'],
+                   **{k: numbers[k] for k in ('ms', 'plain_ms', 'library_ms',
+                                              'bound_ms', 'bound_by')})
     elif case['rows'] == fine_rows:
-      entry.update(fine_rows=case['rows'], fine_ms=ms,
-                   fine_library_ms=library_ms, fine_bound_ms=bound_ms)
+      entry.update(fine_rows=case['rows'], fine_ms=numbers['ms'],
+                   fine_library_ms=numbers['library_ms'],
+                   fine_bound_ms=numbers['bound_ms'])
   return results
 
 
@@ -600,10 +669,19 @@ def phase_train_kernels(model, device, generator, device_name):
         entry.update({f'{part}_ms': part_ms, f'{part}_bound_ms': part_bound})
       del passes
     else:
-      print(f'  nerf_mlp_backward rows={n}: {ms:.3f} ms kernel')
+      library_ms = time_ms(library_nerf_backward(x, rb, nerf_ops, depth, ga,
+                                                 gr), reps=5)
+      io_bytes = (nbytes(x, rb, ga, gr) + operand_bytes(nerf_ops)
+                  + n * (c_pe + nerf_ops.rgb_width) * 4)
+      bound_ms, bound_by = bound(2 * 3 * nerf_macs * n,
+                                 io_bytes + nerf_param_bytes)
+      print(f'  nerf_mlp_backward rows={n}: {ms:.3f} ms kernel, '
+            f'{library_ms:.3f} ms library, bound {bound_ms:.3f} ms '
+            f'({bound_by}), {2 * 3 * nerf_macs * n / ms / 1e9:.1f} TFLOP/s')
       entry = results['nerf_mlp_backward']
       entry['max_abs_err'] = max(err, entry['max_abs_err'])
-      entry['fine_rows_ms'] = ms
+      entry.update(fine_rows=n, fine_rows_ms=ms, fine_library_ms=library_ms,
+                   fine_bound_ms=bound_ms)
     del x, rb, ga, gr, kernel, plain
 
   n = coarse
@@ -871,21 +949,26 @@ def _train_model(config, seed, device):
 
 TRAIN_KERNELS = ('nerf_mlp_forward', 'nerf_mlp_backward', 'warp_mlp_forward',
                  'warp_mlp_backward')
-OUR_KERNEL_NAMES = ('nerf_mlp_kernel', 'nerf_bwd_rows_kernel',
-                    'warp_fwd_kernel', 'warp_bwd_rows_kernel',
-                    'dw_partial_kernel', 'dw_reduce_kernel')
+OUR_KERNEL_NAMES = ('nerf_mlp_kernel', 'warp_trunk_kernel',
+                    'nerf_bwd_rows_kernel', 'warp_fwd_kernel',
+                    'warp_bwd_rows_kernel', 'dw_partial_kernel',
+                    'dw_reduce_kernel')
 
 
-def _profile_step(step, state, batch, scalars, generator):
-  """Device time of one step by kernel, from torch.profiler."""
+def _profile(fn, top=0):
+  """Device time of one call of `fn`, from torch.profiler.
+
+  Returns (wall ms, device busy ms, {kernel of the port: ms}, device ops
+  run, [(op, ms)] of the `top` largest device ops).
+  """
   from torch.profiler import ProfilerActivity, profile
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     start = time.perf_counter()
-    step(generator, state, batch, scalars)
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - start) * 1e3
-  ours, total = {}, 0.0
+  ours, total, count, ops = {}, 0.0, 0, []
   for event in prof.key_averages():
     if event.device_type != torch.autograd.DeviceType.CUDA:
       continue
@@ -893,10 +976,21 @@ def _profile_step(step, state, batch, scalars, generator):
     if us is None:
       us = event.self_cuda_time_total
     total += us
+    count += event.count
+    ops.append((event.key, us / 1e3))
     for name in OUR_KERNEL_NAMES:
       if name in event.key:
         ours[name] = ours.get(name, 0.0) + us
-  return wall_ms, total / 1e3, {k: v / 1e3 for k, v in ours.items()}
+  ops.sort(key=lambda op: -op[1])
+  return (wall_ms, total / 1e3, {k: v / 1e3 for k, v in ours.items()}, count,
+          ops[:top])
+
+
+def _profile_step(step, state, batch, scalars, generator):
+  """Device time of one step by kernel, from torch.profiler."""
+  wall_ms, busy_ms, ours, _, _ = _profile(
+      lambda: step(generator, state, batch, scalars))
+  return wall_ms, busy_ms, ours
 
 
 def phase_train(seed, device=torch.device('cuda', 0)):
@@ -1031,98 +1125,313 @@ def _same_state(got, want):
           and all(torch.equal(a[k], b[k]) for k in b))
 
 
-def phase_cli(train_step_ms):
-  """The training CLI on a synthetic capture, run, saved and resumed."""
+def phase_cli(train_step_ms, work):
+  """The training CLI on a synthetic capture, run, saved and resumed.
+
+  The capture and the experiment stay in `work` for the eval phase.
+  """
   card = card_label()
-  work = pathlib.Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
-  try:
-    scene, exp = work / 'scene', work / 'exp'
+  scene, exp = work / 'scene', work / 'exp'
+  start = time.perf_counter()
+  synthetic.write_synthetic_dataset(
+      scene, num_train=CLI_FRAMES[0], num_val=CLI_FRAMES[1],
+      image_size=CLI_IMAGE_SIZE, num_points=CLI_POINTS,
+      motion_amplitude=0.05, texture_frequency=8.0, env_background=True)
+  print(f'  wrote the capture in {time.perf_counter() - start:.2f} s')
+  frame = scene / 'rgb' / '1x' / '0000.png'
+  decode = []
+  for _ in range(3):
     start = time.perf_counter()
-    synthetic.write_synthetic_dataset(
-        scene, num_train=CLI_FRAMES[0], num_val=CLI_FRAMES[1],
-        image_size=CLI_IMAGE_SIZE, num_points=CLI_POINTS,
-        motion_amplitude=0.05, texture_frequency=8.0, env_background=True)
-    print(f'  wrote the capture in {time.perf_counter() - start:.2f} s')
-    frame = scene / 'rgb' / '1x' / '0000.png'
-    decode = []
-    for _ in range(3):
-      start = time.perf_counter()
-      image_utils.load_image(frame)
-      decode.append(time.perf_counter() - start)
+    image_utils.load_image(frame)
+    decode.append(time.perf_counter() - start)
 
-    def run(max_steps):
-      argv = ['--base_folder', str(exp), '--data_dir', str(scene),
-              '--gin_configs', CLI_GIN]
-      for binding in ('ExperimentConfig.image_scale = 1',
-                      f'TrainConfig.max_steps = {max_steps}',
-                      f'TrainConfig.save_every = {CLI_SAVE_EVERY}',
-                      'TrainConfig.print_every = 1',
-                      'TrainConfig.log_every = 1000000',
-                      'TrainConfig.histogram_every = 1000000'):
-        argv += ['--gin_bindings', binding]
-      return train_cli.main(argv)
+  def run(max_steps):
+    argv = ['--base_folder', str(exp), '--data_dir', str(scene),
+            '--gin_configs', CLI_GIN]
+    for binding in ('ExperimentConfig.image_scale = 1',
+                    f'TrainConfig.max_steps = {max_steps}',
+                    f'TrainConfig.save_every = {CLI_SAVE_EVERY}',
+                    'TrainConfig.print_every = 1',
+                    'TrainConfig.log_every = 1000000',
+                    'TrainConfig.histogram_every = 1000000'):
+      argv += ['--gin_bindings', binding]
+    return train_cli.main(argv)
 
-    def kept():
-      return sorted(int(p.name) for p in (exp / 'checkpoints').iterdir())
+  def kept():
+    return sorted(int(p.name) for p in (exp / 'checkpoints').iterdir())
 
-    fused_mlp.reset_launch_counts()
-    first = run(CLI_FIRST_STEPS)
-    check(first.setup.init_step == 1 and first.state.step == CLI_FIRST_STEPS,
-          f'first run: steps {first.setup.init_step}..{first.state.step}')
-    check(kept() == [CLI_SAVE_EVERY, CLI_FIRST_STEPS],
-          f'checkpoints after the first run: {kept()}')
-    second = run(CLI_LAST_STEP)
-    counts = fused_mlp.launch_counts()
-    check(second.setup.init_step == CLI_FIRST_STEPS + 1,
-          f'the second run starts at {second.setup.init_step}, not at '
-          f'{CLI_FIRST_STEPS + 1}')
-    check(_same_state(second.setup.state, first.state),
-          'the restored state differs from the saved one')
-    print(f'  resumed at step {second.setup.init_step}; the restored state '
-          'equals the saved one bit for bit')
-    # Saved at 8 (save_every) and 10 (the end); the 2 newest are kept.
-    check(kept() == [8, CLI_LAST_STEP],
-          f'checkpoints after the second run: {kept()}')
-    print(f'  checkpoints kept: {kept()}')
-    for result in (first, second):
-      for key, value in _flat_tree(result.stats):
-        check(np.isfinite(value), f'cli stat {key} is {value}')
-    print('  stats of the last step: ' + ', '.join(
-        f'{k} {v:.5g}' for k, v in _flat_tree(second.stats)))
-    print(f'  launches in {CLI_LAST_STEP} CLI steps: {counts}')
-    for name, want in TRAIN_STEP_LAUNCHES.items():
-      check(counts[name] == want * CLI_LAST_STEP,
-            f'{name}: {counts[name]} launches in {CLI_LAST_STEP} CLI steps, '
-            f'expected {want * CLI_LAST_STEP}')
+  fused_mlp.reset_launch_counts()
+  first = run(CLI_FIRST_STEPS)
+  check(first.setup.init_step == 1 and first.state.step == CLI_FIRST_STEPS,
+        f'first run: steps {first.setup.init_step}..{first.state.step}')
+  check(kept() == [CLI_SAVE_EVERY, CLI_FIRST_STEPS],
+        f'checkpoints after the first run: {kept()}')
+  second = run(CLI_LAST_STEP)
+  counts = fused_mlp.launch_counts()
+  check(second.setup.init_step == CLI_FIRST_STEPS + 1,
+        f'the second run starts at {second.setup.init_step}, not at '
+        f'{CLI_FIRST_STEPS + 1}')
+  check(_same_state(second.setup.state, first.state),
+        'the restored state differs from the saved one')
+  print(f'  resumed at step {second.setup.init_step}; the restored state '
+        'equals the saved one bit for bit')
+  # Saved at 8 (save_every) and 10 (the end); the 2 newest are kept.
+  check(kept() == [8, CLI_LAST_STEP],
+        f'checkpoints after the second run: {kept()}')
+  print(f'  checkpoints kept: {kept()}')
+  for result in (first, second):
+    for key, value in _flat_tree(result.stats):
+      check(np.isfinite(value), f'cli stat {key} is {value}')
+  print('  stats of the last step: ' + ', '.join(
+      f'{k} {v:.5g}' for k, v in _flat_tree(second.stats)))
+  print(f'  launches in {CLI_LAST_STEP} CLI steps: {counts}')
+  for name, want in TRAIN_STEP_LAUNCHES.items():
+    check(counts[name] == want * CLI_LAST_STEP,
+          f'{name}: {counts[name]} launches in {CLI_LAST_STEP} CLI steps, '
+          f'expected {want * CLI_LAST_STEP}')
 
-    batch = first.setup.train_config.batch_size
-    step_s = [v for r in (first, second)
-              for v in r.time_tracker.values('train_step')]
-    data_s = [v for r in (first, second) for v in r.time_tracker.values('data')]
-    step_ms = float(np.median(step_s)) * 1e3
-    print(f'  [{card}] CLI train_step median {step_ms:.2f} ms over '
-          f'{len(step_s)} steps ({[round(v * 1e3, 2) for v in step_s]}), '
-          f'{batch / step_ms * 1e3:.1f} rays/s; data median '
-          f'{float(np.median(data_s)) * 1e3:.2f} ms '
-          f'({[round(v * 1e3, 2) for v in data_s]})')
-    print(f'  [{card}] gap to the train phase: {step_ms - train_step_ms:.2f} '
-          f'ms a step ({step_ms:.2f} against {train_step_ms:.2f} ms)')
-    # The same pool built in one thread, beside the CLI's thread pool.
-    source = first.setup.datasource
-    start = time.perf_counter()
-    core.RayPool.from_items([source.get_item(i) for i in source.train_ids])
-    one_thread_s = time.perf_counter() - start
-    print(f'  [{card}] PNG decode of one {CLI_IMAGE_SIZE[0]}x'
-          f'{CLI_IMAGE_SIZE[1]} frame: {min(decode) * 1e3:.2f} ms (best of '
-          f'3); ray pool of {CLI_FRAMES[0]} frames built in '
-          f'{first.setup.timings["ray_pool"]:.2f} s by the CLI\'s thread '
-          f'pool, {one_thread_s:.2f} s in one thread')
-    saves_ms = [v * 1e3 for r in (first, second) for v in r.save_seconds]
-    print(f'  [{card}] checkpoint save {[round(v, 1) for v in saves_ms]} ms, '
-          f'restore {second.setup.timings["restore"] * 1e3:.1f} ms')
-  finally:
-    shutil.rmtree(work, ignore_errors=True)
+  batch = first.setup.train_config.batch_size
+  step_s = [v for r in (first, second)
+            for v in r.time_tracker.values('train_step')]
+  data_s = [v for r in (first, second) for v in r.time_tracker.values('data')]
+  step_ms = float(np.median(step_s)) * 1e3
+  print(f'  [{card}] CLI train_step median {step_ms:.2f} ms over '
+        f'{len(step_s)} steps ({[round(v * 1e3, 2) for v in step_s]}), '
+        f'{batch / step_ms * 1e3:.1f} rays/s; data median '
+        f'{float(np.median(data_s)) * 1e3:.2f} ms '
+        f'({[round(v * 1e3, 2) for v in data_s]})')
+  print(f'  [{card}] gap to the train phase: {step_ms - train_step_ms:.2f} '
+        f'ms a step ({step_ms:.2f} against {train_step_ms:.2f} ms)')
+  # The same pool built in one thread, beside the CLI's thread pool.
+  source = first.setup.datasource
+  start = time.perf_counter()
+  core.RayPool.from_items([source.get_item(i) for i in source.train_ids])
+  one_thread_s = time.perf_counter() - start
+  print(f'  [{card}] PNG decode of one {CLI_IMAGE_SIZE[0]}x'
+        f'{CLI_IMAGE_SIZE[1]} frame: {min(decode) * 1e3:.2f} ms (best of '
+        f'3); ray pool of {CLI_FRAMES[0]} frames built in '
+        f'{first.setup.timings["ray_pool"]:.2f} s by the CLI\'s thread '
+        f'pool, {one_thread_s:.2f} s in one thread')
+  saves_ms = [v * 1e3 for r in (first, second) for v in r.save_seconds]
+  print(f'  [{card}] checkpoint save {[round(v, 1) for v in saves_ms]} ms, '
+        f'restore {second.setup.timings["restore"] * 1e3:.1f} ms')
   return counts
+
+
+def _eval_model(scene, exp, device, fast_preview=False):
+  """The eval CLI's model at the newest checkpoint of `exp`, the capture's
+  datasource, the render state and the EvalConfig (the set-up of
+  nerfies_tpu_torch.eval)."""
+  exp_config, model_config, train_config, eval_config = (
+      eval_cli.parse_configs([CLI_GIN], ['ExperimentConfig.image_scale = 1'],
+                             fast_preview))
+  if fast_preview:
+    model_config.num_coarse_samples = eval_config.num_coarse_samples
+    model_config.num_fine_samples = eval_config.num_fine_samples
+  source = datasets.from_config(
+      {'type': 'nerfies', 'data_dir': str(scene)}, image_scale=1,
+      use_appearance_id=model_config.use_appearance_metadata,
+      use_camera_id=model_config.use_camera_metadata,
+      use_warp_id=model_config.use_warp, use_time=False,
+      random_seed=exp_config.random_seed)
+  model, params = nerf.construct_nerf(
+      model_config, appearance_ids=source.appearance_ids,
+      camera_ids=source.camera_ids, warp_ids=source.warp_ids,
+      near=source.near, far=source.far,
+      generator=torch.Generator().manual_seed(exp_config.random_seed),
+      device=device)
+  state = checkpoints.restore_checkpoint(
+      exp / 'checkpoints', training.create_train_state(params))
+  alpha = schedules.from_config(train_config.warp_alpha_schedule)(state.step)
+  return (model, source,
+          evaluation.RenderState(state.params, warp_alpha=float(alpha)),
+          eval_config)
+
+
+def _smooth_pair():
+  """The smooth, low-variance pair of tests/test_evaluation.py:198."""
+  yy, xx = np.mgrid[0:192, 0:192].astype(np.float32) / 192.0
+  img0 = np.stack([0.6 + 0.01 * xx, 0.6 + 0.01 * yy,
+                   np.full_like(xx, 0.6)], axis=-1)
+  img1 = np.clip(img0 + 1e-3 * np.random.RandomState(4).randn(192, 192, 3),
+                 0, 1).astype(np.float32)
+  return img0, img1
+
+
+def _compare_maps(tag, got, want, atol, rtol):
+  for key in ('rgb', 'depth', 'med_depth', 'acc'):
+    err = float(np.abs(got[key] - want[key]).max())
+    ok = np.allclose(got[key], want[key], atol=atol, rtol=rtol)
+    print(f'  {tag} {key}: max_abs_err {err:.3g}, within atol {atol} rtol '
+          f'{rtol}: {ok}')
+    check(ok, f'{tag}: {key} differs')
+
+
+@torch.no_grad()
+def phase_eval(work, device_name, device=torch.device('cuda', 0)):
+  """The eval CLI twice on the cli phase's experiment, then the checks of
+  its path on the card. Returns the launches of both runs and the kernel
+  cases at the eval path's rows."""
+  card = card_label()
+  scene, exp = work / 'scene', work / 'exp'
+  renders = exp / 'renders'
+  # A stale render directory: max_render_checkpoints = 1 rotates it away.
+  (renders / '4').mkdir(parents=True)
+  num_rays = CLI_IMAGE_SIZE[0] * CLI_IMAGE_SIZE[1]
+  chunks = -(-num_rays // CHUNK)
+  counts, results = {}, {}
+  for run, extra in (('unculled', []), ('culled', ['--fast_preview'])):
+    argv = ['--base_folder', str(exp), '--data_dir', str(scene),
+            '--gin_configs', CLI_GIN, *extra]
+    for binding in EVAL_BINDINGS:
+      argv += ['--gin_bindings', binding]
+    fused_mlp.reset_launch_counts()
+    result = eval_cli.main(argv)
+    got = fused_mlp.launch_counts()
+    results[run] = result
+    check(list(result.metrics) == [CLI_LAST_STEP],
+          f'{run}: evaluated steps {list(result.metrics)}')
+    tags = [tag for _, tag, _, _ in result.frames]
+    check(tags == ['val'] * 2 + ['train'] * 2 + ['test'] * 2,
+          f'{run}: frames {tags}')
+    bake_chunks = 0
+    if extra:
+      check(len(result.bakes) == 1, f'{run}: {len(result.bakes)} bakes')
+      bake_chunks = -(-result.bakes[0]['resolution'] ** 3 // EVAL_BAKE_CHUNK)
+    per_frame = chunks * 2  # coarse and fine
+    want = {name: 0 for name in got}
+    want['warp_trunk_forward'] = len(result.frames) * per_frame
+    want['nerf_mlp_forward'] = len(result.frames) * per_frame + bake_chunks
+    print(f'  {run}: launches {got}, expected {want}')
+    check(got == want, f'{run}: launches {got}, expected {want}')
+    for name, count in got.items():
+      counts[name] = counts.get(name, 0) + count
+    for tag in ('val', 'train'):
+      metrics = result.metrics[CLI_LAST_STEP][tag]
+      for key in ('psnr', 'ms_ssim', 'lpips_uncal'):
+        check(np.isfinite(metrics.get(key, np.nan)),
+              f'{run} {tag}: {key} = {metrics.get(key)}')
+    check(sorted(p.name for p in renders.iterdir()) == [str(CLI_LAST_STEP)],
+          f'{run}: render dirs {sorted(p.name for p in renders.iterdir())}')
+    for _, tag, item, _ in result.frames:
+      for name in ('rgb.png', 'depth_median.png', 'depth_median_raw.png',
+                   'acc.png'):
+        path = renders / str(CLI_LAST_STEP) / tag / item / name
+        check(path.is_file(), f'{run}: {path} not written')
+    for _, tag, item, stats in result.frames:
+      print(f"  [{card}] {run} {tag}/{item}: render_time "
+            f"{stats['render_time'] * 1e3:.1f} ms, "
+            f"{stats['rays_per_sec']:.1f} rays/s")
+    for bake in result.bakes:
+      print(f"  [{card}] {run} occupancy bake at {bake['resolution']}^3: "
+            f"{bake['seconds']:.3f} s, {bake['occupied']:.4f} occupied")
+    print(f'  [{card}] {run} val: ' + ', '.join(
+        f'{k} {v:.5g}' for k, v in result.metrics[CLI_LAST_STEP]['val'].items()))
+
+  # The render-video CLI on the same checkpoint (outside the counts).
+  start = time.perf_counter()
+  frames = render_video.main(
+      ['--base_folder', str(exp), '--data_dir', str(scene), '--gin_configs',
+       CLI_GIN, '--gin_bindings', 'ExperimentConfig.image_scale = 1',
+       '--camera_path', 'orbit-mild', '--chunk', str(CHUNK), '--output_dir',
+       str(work / 'video')])
+  check(len(frames) == 6, f'render_video wrote {len(frames)} frames, not 6')
+  for path in frames:
+    shape = image_utils.load_image(path).shape
+    check(shape == (CLI_IMAGE_SIZE[1], CLI_IMAGE_SIZE[0], 3),
+          f'{path.name}: shape {shape}')
+  print(f'  [{card}] render_video: {len(frames)} PNG frames in '
+        f'{time.perf_counter() - start:.2f} s')
+
+  model, source, state, _ = _eval_model(scene, exp, device)
+  item_id = source.val_ids[0]
+  item = source.get_item(item_id)
+  camera = source.load_camera(item_id)
+  h, w = camera.image_shape
+  render_fn = evaluation.make_render_fn(model, device=device)
+  on_card = evaluation.render_camera(state, camera, item['metadata'],
+                                     render_fn, chunk=CHUNK)
+  rays = core.camera_to_rays(camera)
+  rays.pop('pixels')
+  rays['metadata'] = {k: np.full((h, w, 1), v, np.uint32)
+                      for k, v in item['metadata'].items()}
+  on_host = evaluation.render_image(state, rays, render_fn, chunk=CHUNK)
+  print(f"  [{card}] one frame: render_camera {on_card['render_time'] * 1e3:.1f}"
+        f" ms, render_image of host rays {on_host['render_time'] * 1e3:.1f} ms")
+  _compare_maps('render_camera vs render_image', on_card, on_host,
+                RENDER_ATOL, RENDER_RTOL)
+  grid = occupancy.OccupancyGrid(
+      occupied=torch.ones((8, 8, 8), dtype=torch.bool, device=device),
+      bbox_min=torch.full((3,), -1e3, device=device),
+      bbox_max=torch.full((3,), 1e3, device=device))
+  every = (model.num_coarse_samples,
+           model.num_coarse_samples + model.num_fine_samples)
+  culled = evaluation.render_camera(
+      state, camera, item['metadata'],
+      evaluation.make_render_fn(model, device=device, occupancy=grid,
+                                keep_samples=every),
+      chunk=CHUNK)
+  _compare_maps(f'all-occupied grid, keep {every}', culled, on_card,
+                CULL_NOOP_ATOL, 0.0)
+
+  img0, img1 = _smooth_pair()
+  cpu_ms = float(ssim.multiscale_ssim(img0, img1))
+  card_ms = float(ssim.multiscale_ssim(torch.from_numpy(img0).to(device),
+                                       torch.from_numpy(img1).to(device)))
+  print(f'  MS-SSIM of the smooth pair: card {card_ms:.8f}, cpu {cpu_ms:.8f}')
+  check(card_ms <= 1.0 + 1e-6, f'MS-SSIM {card_ms} above 1 on the card')
+  check(abs(card_ms - cpu_ms) <= MSSSIM_CPU_ATOL,
+        f'MS-SSIM card {card_ms} vs cpu {cpu_ms}')
+  target = image_utils.image_to_float32(item['rgb'][..., :3])
+  card_lpips = lpips.LPIPS(device=device)(target, on_card['rgb'])
+  cpu_lpips = lpips.LPIPS(device='cpu')(target, on_card['rgb'])
+  print(f'  LPIPS (uncalibrated) of a val render: card {card_lpips:.8f}, '
+        f'cpu {cpu_lpips:.8f}')
+  check(abs(card_lpips - cpu_lpips) <= LPIPS_CPU_RTOL * abs(cpu_lpips),
+        f'LPIPS card {card_lpips} vs cpu {cpu_lpips}')
+
+  # Where a frame's time goes: one unculled and one culled frame (a grid
+  # baked as --fast_preview bakes it), profiled.
+  fast_model, _, fast_state, fast_config = _eval_model(scene, exp, device,
+                                                       fast_preview=True)
+  grid, _ = eval_cli.bake_occupancy(fast_state.params, fast_model, source,
+                                    fast_config, device)
+  culled_fn = evaluation.make_render_fn(fast_model, device=device,
+                                        occupancy=grid,
+                                        keep_samples=CULLED_KEEP)
+  for run, frame_state, fn, chunk in (
+      ('unculled', state, render_fn, CHUNK),
+      ('culled', fast_state, culled_fn, CHUNK),
+      (f'culled chunk {PROFILE_BIG_CHUNK}', fast_state, culled_fn,
+       PROFILE_BIG_CHUNK)):
+    try:
+      wall_ms, busy_ms, ours, count, top = _profile(
+          lambda: evaluation.render_camera(frame_state, camera,
+                                           item['metadata'], fn, chunk=chunk),
+          top=6)
+      print(f'  [{card}] profiled {run} frame: {wall_ms:.2f} ms wall, '
+            f'{busy_ms:.2f} ms device busy ({1 - busy_ms / wall_ms:.3f} idle '
+            f'share), {count} device ops; kernels of the port '
+            f'{sum(ours.values()):.2f} ms; largest: ' + ', '.join(
+                f'{name[:60]} {ms:.2f}' for name, ms in top))
+    except Exception as e:  # the breakdown is a reading, not a check
+      print(f'  profiled {run} frame: not measured ({type(e).__name__}: {e})')
+
+  # The serving kernels at the rows the eval path gives them: the culled
+  # levels (16 and 32 kept samples a ray), the bake (no rgb row bias) and
+  # the warp over the culled path's candidates (32, and 16 kept + 64).
+  keep_c, keep_f = CULLED_KEEP
+  coarse_c, fine_c = PREVIEW_SAMPLES
+  cases = {}
+  for case in _kernel_cases(
+      model, device, torch.Generator(device).manual_seed(3),
+      nerf_rows=((CHUNK * keep_c, True), (CHUNK * keep_f, True),
+                 (EVAL_BAKE_CHUNK, False)),
+      warp_rows=(CHUNK * coarse_c, CHUNK * (keep_c + fine_c))):
+    numbers = _run_case(case, device_name)
+    cases.setdefault(case['name'], []).append(
+        dict(rows=case['rows'], with_bias=case['with_bias'], **numbers))
+  return counts, cases
 
 
 def _tree_to(tree, device):
@@ -1143,6 +1452,7 @@ def main(argv=None):
   parser.add_argument('--seed', type=int, default=0)
   args = parser.parse_args(argv)
   total = time.perf_counter()
+  work = pathlib.Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
   try:
     device_name = run_phase('device', phase_device)
     device = torch.device('cuda', 0)
@@ -1168,10 +1478,14 @@ def main(argv=None):
     run_phase('parity', phase_parity, model, state, first_request)
     train_counts, train_numbers = run_phase('train', phase_train, args.seed)
     run_phase('train_parity', phase_train_parity, args.seed)
-    cli_counts = run_phase('cli', phase_cli, train_numbers['step_ms'])
+    cli_counts = run_phase('cli', phase_cli, train_numbers['step_ms'], work)
+    eval_counts, eval_cases = run_phase('eval', phase_eval, work,
+                                        device_name)
   except Exception as e:  # report the failing phase, then fail the run
     print(f'FAILED: {type(e).__name__}: {e}', file=sys.stderr, flush=True)
     raise
+  finally:
+    shutil.rmtree(work, ignore_errors=True)
   sources = {
       'nerf_mlp_forward': ('nerfies_tpu_torch/csrc/fused_mlp.cu',
                            'nerfies_tpu/ops/fused_mlp.py:78'),
@@ -1189,7 +1503,10 @@ def main(argv=None):
     k = kernels[name]
     by_path = {'serve': serve_counts.get(name, 0),
                'train': train_counts.get(name, 0),
-               'cli': cli_counts.get(name, 0)}
+               'cli': cli_counts.get(name, 0),
+               'eval': eval_counts.get(name, 0)}
+    for case in eval_cases.get(name, []):
+      k['max_abs_err'] = max(k['max_abs_err'], case['max_abs_err'])
     lines.append({
         'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
         'launches': sum(by_path.values()), 'launches_by_path': by_path,
@@ -1201,7 +1518,10 @@ def main(argv=None):
                                    'weight_pass_ms', 'weight_pass_bound_ms',
                                    'fine_rows', 'fine_ms', 'fine_rows_ms',
                                    'fine_library_ms', 'fine_bound_ms')
-           if key in k}})
+           if key in k},
+        'eval_cases': [{key: case[key] for key in (
+            'rows', 'with_bias', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+            'bound_by')} for case in eval_cases.get(name, [])]})
   print(f'total: {time.perf_counter() - total:.2f} s '
         f'(build {build_seconds:.2f} s)')
   print(json.dumps({'kernels': lines}))

@@ -5,9 +5,15 @@ The JAX package `nerfies_tpu` stays the reference; this package imports
 
 Two paths are ported, each through hand-written CUDA kernels on a CUDA
 tensor and through their plain PyTorch versions on a CPU tensor:
-- serving: `evaluation.make_render_fn` and `evaluation.render_image` drive
+- serving: `evaluation.make_render_fn` with `evaluation.render_camera`
+  (rays made on the device) or `evaluation.render_image` drives
   `fast_render.render_rays`, whose two MLP stacks run as the kernels of
-  `csrc/fused_mlp.cu` (`ops/fused_mlp.py`);
+  `csrc/fused_mlp.cu` (`ops/fused_mlp.py`), optionally culled through an
+  occupancy grid (`occupancy.py`). The eval CLI,
+  `python -m nerfies_tpu_torch.eval` (`eval.py`), evaluates the trainer's
+  checkpoints with PSNR, MS-SSIM (`ops/ssim.py`) and LPIPS (`lpips.py`)
+  and writes colorized maps (`visualization.py`);
+  `python -m nerfies_tpu_torch.render_video` renders a camera path;
 - training: `training.make_train_step` runs `fused_train.model_forward`,
   whose NeRF MLP and warp trunk are autograd Functions over the forward
   and backward kernels of `csrc/fused_mlp.cu`, `csrc/fused_mlp_bwd.cu`,

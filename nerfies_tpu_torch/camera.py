@@ -117,8 +117,10 @@ def pixels_to_rays(pixels: torch.Tensor, orientation: torch.Tensor,
   x, y = undistort(x, y, radial_distortion, tangential_distortion)
   dirs = torch.stack([x, y, torch.ones_like(x)], dim=-1)
   dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
-  # Local -> world: R^T @ d.
-  dirs = torch.einsum('...ji,...j->...i', orientation, dirs)
+  # Local -> world: R^T @ d, as an elementwise product and a sum over j,
+  # which gives a ray the same bits in a batch of any size (a matmul's
+  # summation order depends on the batch size).
+  dirs = (orientation * dirs[..., :, None]).sum(dim=-2)
   return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
 
 

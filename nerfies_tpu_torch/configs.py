@@ -173,10 +173,8 @@ class TrainConfig:
 @gin.configurable
 @dataclasses.dataclass
 class EvalConfig:
-  """Evaluation parameters (see nerfies_tpu.configs.EvalConfig).
-
-  Parsed for the zoo; the eval CLI is not ported yet.
-  """
+  """Evaluation parameters (see nerfies_tpu.configs.EvalConfig), read by
+  the eval CLI (`python -m nerfies_tpu_torch.eval`)."""
   eval_once: bool = False
   save_output: bool = True
   # Rays per render dispatch.

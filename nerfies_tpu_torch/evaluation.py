@@ -1,10 +1,12 @@
 """Full-image rendering for serving.
 
-Port of `make_render_fn` and `render_image` (nerfies_tpu/evaluation.py:26-152,
-220-324). The JAX package renders an image in one jitted `lax.map` over
-chunks; here a Python loop over chunks queues each chunk's work on the
-card's stream and fetches the outputs once at the end. `render_camera`,
-with its on-device ray generation, waits for a later slice.
+Port of `make_render_fn`, `render_camera` and `render_image`
+(nerfies_tpu/evaluation.py:26-324). The JAX package renders an image in
+one jitted `lax.map` over chunks; here a Python loop over chunks queues
+each chunk's work on the card's stream and fetches the outputs once at
+the end. `render_camera` makes the rays on the device from the camera's
+parameters (`camera.pixels_to_rays`); `render_image` takes rays built on
+the host.
 """
 
 import dataclasses
@@ -14,6 +16,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from nerfies_tpu_torch import camera as camera_lib
 from nerfies_tpu_torch import fast_render
 from nerfies_tpu_torch import resolve_device
 
@@ -45,28 +48,133 @@ def _to_device(rays: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
   return out
 
 
-def make_render_fn(model, use_warp: bool = True,
-                   device='cuda') -> Callable:
+def check_renderable(model_config) -> None:
+  """Refuses a model or ModelConfig that JAX renders through model.apply.
+
+  The JAX render function takes the fused serving path when the model
+  samples deterministically (the eval's ModelConfig forces it) and
+  `fast_render.supported(model)` holds (nerfies_tpu/evaluation.py:54-55);
+  otherwise it runs the Flax forward, which the port lacks (ROADMAP Queue
+  1 item 8).
+
+  Raises:
+    NotImplementedError: naming the missing path.
+  """
+  if not fast_render.supported(model_config):
+    raise NotImplementedError(
+        'the JAX eval renders this config through model.apply, the Flax '
+        'forward, which is not ported (ROADMAP Queue 1 item 8): '
+        'fast_render.supported(model) is False')
+
+
+def make_render_fn(model, use_warp: bool = True, device='cuda',
+                   occupancy=None, keep_samples=None) -> Callable:
   """Builds the per-chunk render function.
 
   Returns a callable (params, rays_dict, warp_extra) -> the model output
   dict of `fast_render.render_rays` for a flat ray batch, with the rays
-  moved to `device` (the params must already lie there).
+  moved to `device` (the params must already lie there). The callable's
+  `device` attribute names that device.
+
+  `occupancy` (an occupancy.OccupancyGrid baked from the model's density)
+  with `keep_samples=(k_coarse, k_fine)` culls empty space
+  (`fast_render.render_rays`).
 
   Raises:
     NotImplementedError: for a model the fast path does not cover (the
       JAX package falls back to `model.apply` there, which is not ported).
   """
   device = resolve_device(device)
-  if model.use_stratified_sampling or not fast_render.supported(model):
-    raise NotImplementedError(
-        'only deterministic models that fast_render supports are served')
+  if model.use_stratified_sampling:
+    raise NotImplementedError('serving renders deterministically; the '
+                              'model uses stratified sampling')
+  check_renderable(model)
 
   def render_fn(params, rays_dict, warp_extra):
     return fast_render.render_rays(params, _to_device(rays_dict, device),
-                                   warp_extra, model, use_warp=use_warp)
+                                   warp_extra, model, use_warp=use_warp,
+                                   occupancy=occupancy,
+                                   keep_samples=keep_samples)
 
+  render_fn.device = device
   return render_fn
+
+
+def _check_ret_key(default_ret_key):
+  if default_ret_key not in (None, 'fine', 'coarse'):
+    raise ValueError(f'default_ret_key must be fine or coarse, '
+                     f'not {default_ret_key!r}')
+
+
+def _gather_levels(level_outs, num_rays: int, h: int, w: int,
+                   start: float) -> Dict[str, Any]:
+  """The chunks' outputs as (H, W, ...) numpy maps, with the timings."""
+  keys = ('rgb', 'depth', 'med_depth', 'acc')
+  result = {k: torch.cat([o[k] for o in level_outs])[:num_rays].cpu().numpy()
+            for k in keys}
+  elapsed = time.perf_counter() - start
+  result = {k: v.reshape((h, w, *v.shape[1:])) for k, v in result.items()}
+  result['render_time'] = elapsed
+  result['rays_per_sec'] = num_rays / max(elapsed, 1e-9)
+  return result
+
+
+def render_camera(state,
+                  camera,
+                  metadata_ids: Dict[str, Any],
+                  model_fn: Callable,
+                  chunk: int = 8192,
+                  default_ret_key: Optional[str] = None) -> Dict[str, Any]:
+  """Renders a camera's full image with the rays made on the device.
+
+  Only the camera parameters and the per-image metadata ids go to the
+  device; each chunk's pixel centres come from an index over the rays and
+  turn into world rays there (`camera.pixels_to_rays`). The last chunk is
+  padded to the full chunk with copies of the last pixel, as
+  `render_image` pads with the last ray, so every chunk has one shape.
+
+  Args:
+    state: anything with `.params` and `.warp_extra` (e.g. RenderState).
+    camera: a camera.Camera (anything with .ray_parameters() and
+      .image_shape).
+    metadata_ids: scalar per-image ids, e.g. {'warp': 0, 'appearance': 0,
+      'camera': 0, 'time': 0.3}; integers except 'time' (float32).
+    model_fn: callable from `make_render_fn`.
+    chunk / default_ret_key: as `render_image`.
+
+  Returns:
+    Dict of (H, W, ...) numpy maps plus render_time / rays_per_sec.
+  """
+  _check_ret_key(default_ret_key)
+  device = model_fn.device
+  h, w = camera.image_shape
+  num_rays = h * w
+  chunk = min(chunk, num_rays)
+  cam = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+         for k, v in camera.ray_parameters().items()}
+
+  start = time.perf_counter()
+  level_outs = []
+  for lo in range(0, num_rays, chunk):
+    # Padding rays clamp to the last pixel.
+    ray_idx = torch.clamp(torch.arange(lo, lo + chunk, device=device),
+                          max=num_rays - 1)
+    px = (ray_idx % w).float() + 0.5
+    py = torch.div(ray_idx, w, rounding_mode='floor').float() + 0.5
+    directions = camera_lib.pixels_to_rays(torch.stack([px, py], dim=-1),
+                                           **cam)
+    rays = {
+        'origins': cam['position'].expand(chunk, 3),
+        'directions': directions,
+        'metadata': {
+            k: torch.full((chunk, 1), v, device=device,
+                          dtype=torch.float32 if k == 'time' else torch.int64)
+            for k, v in metadata_ids.items()},
+    }
+    out = model_fn(state.params, rays, state.warp_extra)
+    level = default_ret_key or ('fine' if 'fine' in out else 'coarse')
+    level_outs.append(out[level])
+  return _gather_levels(level_outs, num_rays, h, w, start)
 
 
 def render_image(state,
@@ -90,9 +198,7 @@ def render_image(state,
     Dict of (H, W, ...) numpy maps rgb, depth, med_depth, acc, plus
     render_time (s, host clock, ending with the copy back) and rays_per_sec.
   """
-  if default_ret_key not in (None, 'fine', 'coarse'):
-    raise ValueError(f'default_ret_key must be fine or coarse, '
-                     f'not {default_ret_key!r}')
+  _check_ret_key(default_ret_key)
   h, w = rays_dict['origins'].shape[:2]
   num_rays = h * w
 
@@ -122,11 +228,4 @@ def render_image(state,
     out = model_fn(state.params, take(rays, lo, hi), state.warp_extra)
     level = default_ret_key or ('fine' if 'fine' in out else 'coarse')
     level_outs.append(out[level])
-  keys = ('rgb', 'depth', 'med_depth', 'acc')
-  result = {k: torch.cat([o[k] for o in level_outs])[:num_rays].cpu().numpy()
-            for k in keys}
-  elapsed = time.perf_counter() - start
-  result = {k: v.reshape((h, w, *v.shape[1:])) for k, v in result.items()}
-  result['render_time'] = elapsed
-  result['rays_per_sec'] = num_rays / max(elapsed, 1e-9)
-  return result
+  return _gather_levels(level_outs, num_rays, h, w, start)

@@ -9,14 +9,16 @@ plain versions.
 There is no `mlp=` switch. The JAX default, mlp='xla', was chosen from a
 TPU timing (XLA's per-layer pipeline beat the Pallas forward at render on
 v5e), which says nothing about this card; the port serves through the
-kernels. Deterministic rendering only, as in the JAX path. Occupancy
-culling (`occupancy`, `keep_samples`) is not ported yet and raises.
+kernels. Deterministic rendering only, as in the JAX path. With an
+occupancy grid (`occupancy.py`) and `keep_samples`, each level runs the
+NeRF MLP on only the first K occupied candidates of each ray.
 """
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from nerfies_tpu_torch import occupancy as occupancy_lib
 from nerfies_tpu_torch.models import glo
 from nerfies_tpu_torch.ops import encoding
 from nerfies_tpu_torch.ops import fused_mlp
@@ -132,10 +134,21 @@ def _conditions(params, model, viewdirs, metadata):
 
 
 def _render_level(params, model, level, points, z_vals, directions,
-                  viewdirs, metadata, warp_extra, use_warp):
+                  viewdirs, metadata, warp_extra, use_warp, occupancy=None,
+                  keep=None):
   if use_warp:
     points = _apply_warp_fused(params, model, points, metadata['warp'],
                                warp_extra)
+  culled = occupancy is not None and keep is not None
+  dists = None
+  if culled:
+    # Empty-space skipping: of the S depth-ordered candidates only the
+    # first `keep` whose canonical (post-warp) position lies in an
+    # occupied voxel reach the MLP; they keep their ladder spacing.
+    idx = occupancy_lib.select_occupied(occupancy.query(points), keep)
+    z_vals, points, dists = occupancy_lib.gather_samples(
+        z_vals, points, idx,
+        rendering.ladder_dists(z_vals, model.use_sample_at_infinity))
   b, s = points.shape[:2]
   pe = encoding.posenc(points, num_freqs=model.num_nerf_point_freqs)
   c_pe = pe.shape[-1]
@@ -160,11 +173,15 @@ def _render_level(params, model, level, points, z_vals, directions,
   if model.rgb_padding:
     rgb = rgb * (1.0 + 2.0 * model.rgb_padding) - model.rgb_padding
   sigma = model.sigma_activation_fn(raw_sigma)
-  return rendering.volumetric_rendering(
+  out = rendering.volumetric_rendering(
       rgb, sigma, z_vals, directions,
       use_white_background=model.use_white_background,
       sample_at_infinity=model.use_sample_at_infinity,
-      return_weights=True)
+      return_weights=True, dists=dists)
+  if culled:
+    # The kept depth ladder, for the fine level's PDF resampling.
+    out['kept_z_vals'] = z_vals
+  return out
 
 
 @torch.no_grad()
@@ -187,13 +204,15 @@ def render_rays(params: Dict[str, Any],
     model: a NerfModel (the static architecture).
     use_warp: apply the warp field if the model has one.
     return_weights: keep the compositing weights in the output.
+    occupancy: an occupancy.OccupancyGrid baked from this model's density.
+    keep_samples: (k_coarse, k_fine) with `occupancy`: each level runs the
+      MLP on the first k occupied candidates of each ray; None for either
+      leaves that level unculled. Exact up to the grid's threshold.
 
   Returns:
     {'coarse': {...}, 'fine'?: {...}} with rgb / depth / med_depth / acc
     (+ weights) per level, as the JAX `render_rays` returns.
   """
-  if occupancy is not None or keep_samples is not None:
-    raise NotImplementedError('occupancy culling is not ported yet')
   if model.use_stratified_sampling:
     raise NotImplementedError('serving renders deterministically; the '
                               'model uses stratified sampling')
@@ -203,12 +222,16 @@ def render_rays(params: Dict[str, Any],
   metadata = rays_dict['metadata']
   viewdirs = rays_dict.get('viewdirs', directions)
 
+  keep_coarse, keep_fine = keep_samples or (None, None)
   z_vals, points = rendering.sample_along_rays(
       origins, directions, model.num_coarse_samples, model.near, model.far,
       model.use_linear_disparity)
   out = {'coarse': _render_level(params, model, 'coarse', points, z_vals,
                                  directions, viewdirs, metadata, warp_extra,
-                                 use_warp)}
+                                 use_warp, occupancy, keep_coarse)}
+  # With coarse culling, z_vals and the weights below are the kept subset:
+  # the PDF then places the fine samples inside it.
+  z_vals = out['coarse'].pop('kept_z_vals', z_vals)
   if model.num_fine_samples > 0:
     z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     z_vals, points = rendering.sample_pdf(
@@ -216,7 +239,8 @@ def render_rays(params: Dict[str, Any],
         directions, z_vals, model.num_fine_samples)
     out['fine'] = _render_level(params, model, 'fine', points, z_vals,
                                 directions, viewdirs, metadata, warp_extra,
-                                use_warp)
+                                use_warp, occupancy, keep_fine)
+    out['fine'].pop('kept_z_vals', None)
   if not return_weights:
     for level in out.values():
       level.pop('weights', None)

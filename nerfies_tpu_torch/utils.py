@@ -1,8 +1,7 @@
 """Host-side helpers of the training loop: a thread-pool map and meters.
 
-Port of the parts of nerfies_tpu/utils.py that the training CLI uses:
-`parallel_map`, `ValueMeter` and `TimeTracker`. The camera-path and
-latent-code interpolation wait for the eval and video slice.
+Port of the parts of nerfies_tpu/utils.py that the training and eval CLIs
+use: `parallel_map`, `strided_subset`, `ValueMeter` and `TimeTracker`.
 """
 
 import collections
@@ -24,6 +23,20 @@ def parallel_map(f, iterable, max_threads=None, show_pbar=False, **kwargs):
       except ImportError:
         pass
     return list(results)
+
+
+def strided_subset(sequence, count):
+  """Every k-th element so that ~count remain.
+
+  count=None keeps everything (reference eval.py semantics); count=0
+  selects nothing.
+  """
+  if count is None:
+    return sequence
+  if count == 0:
+    return type(sequence)()
+  stride = max(1, len(sequence) // count)
+  return sequence[::stride]
 
 
 class ValueMeter:

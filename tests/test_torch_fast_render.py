@@ -150,11 +150,14 @@ def test_render_image_chunk_invariance():
 
 
 def test_unported_options_raise():
+  # Serving renders deterministically: a model that samples stratified is
+  # refused (the occupancy options, which this test named before, are
+  # ported; tests/test_torch_occupancy.py holds them against JAX).
   _, _, model, params = _build('se3')
   rays = _torch_rays(_rays())
-  with pytest.raises(NotImplementedError):
-    fast_render.render_rays(params, rays, _WARP_EXTRA, model,
-                            keep_samples=(4, 4))
+  model.use_stratified_sampling = True
+  with pytest.raises(NotImplementedError, match='stratified'):
+    fast_render.render_rays(params, rays, _WARP_EXTRA, model)
 
 
 # The warp encoding's kwargs. The serving warp encodes the points as the

@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, Flax, nerfies_tpu, absl, TensorFlow, cv2 or
-PIL, and no silent CPU runs."""
+"""The port stands alone: no JAX, Flax, nerfies_tpu, absl, TensorFlow, cv2,
+PIL or matplotlib, and no silent CPU runs."""
 
 import ast
 import os
@@ -22,7 +22,7 @@ PORT_FILES = sorted((REPO / 'nerfies_tpu_torch').rglob('*.py')) + [
     REPO / 'chip_smoke.py', REPO / 'scripts' / 'time_warp_backward.py',
     REPO / 'scripts' / 'time_forwards.py']
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nerfies_tpu', 'absl',
-             'tensorflow', 'cv2', 'PIL')
+             'tensorflow', 'cv2', 'PIL', 'matplotlib')
 # Absent at import time too: fsspec is imported only for a cloud path.
 BLOCKED_AT_IMPORT = FORBIDDEN + ('fsspec',)
 
