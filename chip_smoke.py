@@ -51,6 +51,20 @@ non-zero exit at the first phase that fails:
            ids and noise; stats at rtol 0.05, atol 5e-4 and each param's
            gradient (the first Adam moment, 0.1 x gradient) at cosine >
            0.95 and norm ratio in (0.7, 1.4), as tests/test_fused_train.py.
+  model    the plain forward (NerfModel.forward, JAX's model.apply) at the
+           architecture of configs/gpu_vrig_paper.gin (NeRF 8x256 skip 4,
+           rgb branch 128; SE(3) warp 6x128, 6 frequencies, 8 GLO
+           features; 2 camera dims; float32, no TF32), random weights from
+           the seed: 256 rays with deterministic sampling on the card
+           against the CPU (rgb, depth, acc at atol 1e-4, rtol 1e-3; the
+           coarse warp Jacobian at atol 1e-3), with no kernel launched;
+           in bf16 against the serving kernels on the card (atol 0.02,
+           rtol 0.05); one bench-workload step with use_fused_warp=False
+           after a warm-up, requiring finite stats and per step NeRF
+           forward 2, NeRF backward 2 and no warp kernel (the counts set to
+           0 just before it and read just after); a 128x128 request
+           through make_render_fn(fast='off'), launching nothing, against
+           fast='auto' at the parity limits, with the rays/s of each.
   cli      write a synthetic capture with nerfies_tpu_torch.datasets.synthetic
            (16 train and 2 val frames of 480x272 at scale 1: 2,088,960
            rays in the pool; 16,384 background points) and train it with
@@ -66,6 +80,17 @@ non-zero exit at the first phase that fails:
            decode, the ray pool's build (and the same pool built in one
            thread) and checkpoint save and restore. The capture and the
            experiment stay for the eval phase.
+  cli_plain  train configs/gpu_vrig_paper.gin at full width (image scale
+           1) with the training CLI on the cli phase's capture: 5 steps,
+           then resumed to 7; require finite stats, the restored state
+           equal bit for bit and no launch of any kernel over both runs
+           (the plain route runs none; counts set to 0 just before the
+           first run and read after the median run below); print the median
+           train_step, rays/s, max_memory_allocated and the gap to the
+           train phase's step; profile one plain step (device busy, idle
+           share, matmul kernels against the rest); then 2 steps with
+           elastic_reduce_method 'median' in a fresh experiment (the
+           gathered median), requiring a finite loss/elastic.
   eval     evaluate the cli phase's step-10 checkpoint with the eval CLI,
            nerfies_tpu_torch.eval.main (eval_once; 2 val, 2 train and 2
            test cameras; chunk 8192; renders rotated to 1 checkpoint), once
@@ -116,6 +141,7 @@ from nerfies_tpu_torch import configs
 from nerfies_tpu_torch import datasets
 from nerfies_tpu_torch import eval as eval_cli
 from nerfies_tpu_torch import evaluation
+from nerfies_tpu_torch import fast_render
 from nerfies_tpu_torch import image_utils
 from nerfies_tpu_torch import lpips
 from nerfies_tpu_torch import occupancy
@@ -189,6 +215,20 @@ LPIPS_CPU_RTOL = 1e-3
 PARITY_BACKGROUND_POINTS = 2048
 STATS_RTOL, STATS_ATOL = 0.05, 5e-4
 GRAD_COSINE, GRAD_NORM_RATIO = 0.95, (0.7, 1.4)
+# The model and cli_plain phases: the plain forward (NerfModel.forward,
+# JAX's model.apply) at the architecture of PLAIN_GIN, in float32 with no
+# TF32; the card against the CPU on MODEL_RAYS rays.
+PLAIN_GIN = 'configs/gpu_vrig_paper.gin'
+MODEL_RAYS = 256
+MODEL_ATOL, MODEL_RTOL, MODEL_JACOBIAN_ATOL = 1e-4, 1e-3, 1e-3
+WARP_EXTRA = {'alpha': WARP_ALPHA, 'time_alpha': 0.0}
+# A fused step with use_fused_warp=False: the NeRF kernels, no warp kernel.
+PLAIN_WARP_STEP_LAUNCHES = {'nerf_mlp_forward': 2, 'nerf_mlp_backward': 2,
+                            'warp_mlp_forward': 0, 'warp_mlp_backward': 0,
+                            'warp_trunk_forward': 0}
+CLI_PLAIN_FIRST, CLI_PLAIN_LAST, CLI_MEDIAN_STEPS = 5, 7, 2
+# Device kernels of a matmul (cuBLAS's names), for the profile's split.
+MATMUL_MARKS = ('gemm', 'xmma', 'cutlass', 'cublas')
 
 # Dense peaks of the card at its full power limit, from NVIDIA's data
 # sheets (SXM parts): bf16 tensor FLOP/s and device-memory bytes/s.
@@ -924,17 +964,20 @@ def phase_parity(model, state, rays):
       check(ok, f'{level}/{key} differs from the CPU plain render')
 
 
-def _train_batch(batch_size, background_points, seed):
-  """bench.py's fake_batch: unit directions, random colours and ids."""
+def _train_batch(batch_size, background_points, seed, id_counts=(16, 2, 16)):
+  """bench.py's fake_batch: unit directions, random colours and ids (below
+  id_counts: warp, camera, appearance)."""
   rng = np.random.RandomState(seed)
   directions = rng.randn(batch_size, 3).astype(np.float32)
   directions /= np.linalg.norm(directions, axis=-1, keepdims=True)
   ids = lambda high: rng.randint(0, high, (batch_size, 1))
+  warp, camera, appearance = id_counts
   return {
       'origins': np.zeros((batch_size, 3), np.float32),
       'directions': directions,
       'rgb': rng.uniform(size=(batch_size, 3)).astype(np.float32),
-      'metadata': {'warp': ids(16), 'camera': ids(2), 'appearance': ids(16)},
+      'metadata': {'warp': ids(warp), 'camera': ids(camera),
+                   'appearance': ids(appearance)},
       'background_points': rng.randn(background_points, 3).astype(
           np.float32),
   }
@@ -959,7 +1002,8 @@ def _profile(fn, top=0):
   """Device time of one call of `fn`, from torch.profiler.
 
   Returns (wall ms, device busy ms, {kernel of the port: ms}, device ops
-  run, [(op, ms)] of the `top` largest device ops).
+  run, [(op, ms)] of the `top` largest device ops, [(aten op, ms)] of the
+  `top` ops whose own launches took the most device time).
   """
   from torch.profiler import ProfilerActivity, profile
   with profile(activities=[ProfilerActivity.CPU,
@@ -968,13 +1012,15 @@ def _profile(fn, top=0):
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - start) * 1e3
-  ours, total, count, ops = {}, 0.0, 0, []
+  ours, total, count, ops, aten = {}, 0.0, 0, [], []
   for event in prof.key_averages():
-    if event.device_type != torch.autograd.DeviceType.CUDA:
-      continue
     us = getattr(event, 'self_device_time_total', None)
     if us is None:
       us = event.self_cuda_time_total
+    if event.device_type != torch.autograd.DeviceType.CUDA:
+      if us > 0:
+        aten.append((event.key, us / 1e3))
+      continue
     total += us
     count += event.count
     ops.append((event.key, us / 1e3))
@@ -982,13 +1028,14 @@ def _profile(fn, top=0):
       if name in event.key:
         ours[name] = ours.get(name, 0.0) + us
   ops.sort(key=lambda op: -op[1])
+  aten.sort(key=lambda op: -op[1])
   return (wall_ms, total / 1e3, {k: v / 1e3 for k, v in ours.items()}, count,
-          ops[:top])
+          ops[:top], aten[:top])
 
 
 def _profile_step(step, state, batch, scalars, generator):
   """Device time of one step by kernel, from torch.profiler."""
-  wall_ms, busy_ms, ours, _, _ = _profile(
+  wall_ms, busy_ms, ours, *_ = _profile(
       lambda: step(generator, state, batch, scalars))
   return wall_ms, busy_ms, ours
 
@@ -1102,6 +1149,223 @@ def phase_train_parity(seed, device=torch.device('cuda', 0)):
   # The first Adam moment of a step from zero moments is 0.1 x gradient.
   _grad_check(_tree_to(out['card'][1], 'cpu'), out['cpu'][1],
               'gradients (card vs cpu)')
+
+
+def _plain_config(**overrides):
+  """The ModelConfig and TrainConfig of PLAIN_GIN, with `overrides`."""
+  _, model_config, train_config = train_cli.parse_configs([PLAIN_GIN])
+  return dataclasses.replace(model_config, **overrides), train_config
+
+
+def _flat_rays(rays, count):
+  """The first `count` rays of an (H, W, ...) request, flat."""
+  return {k: (_flat_rays(v, count) if isinstance(v, dict)
+              else v.reshape(-1, v.shape[-1])[:count])
+          for k, v in rays.items()}
+
+
+def _compare(tag, got, want, keys, atol, rtol):
+  for level in want:
+    for key in keys:
+      g = got[level][key].float().cpu().numpy()
+      w = want[level][key].float().cpu().numpy()
+      err = float(np.abs(g - w).max())
+      ok = np.allclose(g, w, atol=atol, rtol=rtol)
+      print(f'  {tag} {level}/{key}: max_abs_err {err:.3g}, within atol '
+            f'{atol} rtol {rtol}: {ok}')
+      check(ok, f'{tag}: {level}/{key} differs')
+
+
+def _check_no_launches(tag, counts):
+  check(not any(counts.values()), f'{tag} launched kernels: {counts}')
+
+
+def phase_model(seed, rays, device=torch.device('cuda', 0)):
+  """The plain forward against the CPU and the serving kernels, a fused
+  step with the plain warp, and a render through either route."""
+  check(not torch.backends.cuda.matmul.allow_tf32,
+        'TF32 matmuls are on: the plain route is float32')
+  config, _ = _plain_config(use_stratified_sampling=False)
+  check(not (config.use_fused_mlp or config.use_bfloat16),
+        f'{PLAIN_GIN} is not the float32 plain route')
+  model, params = nerf.construct_nerf(
+      config, **configs.BENCH_RENDER_IDS,
+      generator=torch.Generator().manual_seed(seed), device=device,
+      use_warp_jacobian=True)
+  check(not model.fused_route, 'the model takes the fused route')
+  flat = _flat_rays(rays, MODEL_RAYS)
+  fused_mlp.reset_launch_counts()
+  with torch.no_grad():
+    got = model(params, evaluation._to_device(flat, device), WARP_EXTRA)
+    torch.cuda.synchronize()
+    _check_no_launches('the plain forward', fused_mlp.launch_counts())
+    want = model(_tree_to(params, 'cpu'),
+                 evaluation._to_device(flat, torch.device('cpu')),
+                 WARP_EXTRA)
+  _compare('f32 card vs cpu', got, want, ('rgb', 'depth', 'acc'),
+           MODEL_ATOL, MODEL_RTOL)
+  jac_err = float((got['coarse']['warp_jacobian'].cpu()
+                   - want['coarse']['warp_jacobian']).abs().max())
+  print(f'  f32 card vs cpu coarse/warp_jacobian: max_abs_err {jac_err:.3g} '
+        f'(atol {MODEL_JACOBIAN_ATOL})')
+  check(jac_err <= MODEL_JACOBIAN_ATOL, 'the warp Jacobian differs')
+  del got, want
+
+  model16, params16 = nerf.construct_nerf(
+      dataclasses.replace(config, use_bfloat16=True),
+      **configs.BENCH_RENDER_IDS,
+      generator=torch.Generator().manual_seed(seed), device=device)
+  rays_dev = evaluation._to_device(flat, device)
+  with torch.no_grad():
+    plain = model16(params16, rays_dev, WARP_EXTRA)
+  fused = fast_render.render_rays(params16, rays_dev, WARP_EXTRA, model16)
+  _compare('bf16 plain vs serving kernels', plain, fused,
+           ('rgb', 'depth', 'acc'), RENDER_ATOL, RENDER_RTOL)
+  del model16, params16, plain, fused
+
+  counts = _plain_warp_step(seed, device)
+
+  state = evaluation.RenderState(params, warp_alpha=WARP_ALPHA)
+  off = evaluation.make_render_fn(model, device=device, fast='off')
+  auto = evaluation.make_render_fn(model, device=device)
+  check(auto.fast and not off.fast, 'render routes')
+  fused_mlp.reset_launch_counts()
+  plain_out = evaluation.render_image(state, rays, off, chunk=CHUNK)
+  _check_no_launches("render_image with fast='off'",
+                     fused_mlp.launch_counts())
+  fast_out = evaluation.render_image(state, rays, auto, chunk=CHUNK)
+  print(f"  [{card_label()}] {IMAGE_SIZE}x{IMAGE_SIZE} request, chunk "
+        f"{CHUNK}: fast='off' {plain_out['rays_per_sec']:.1f} rays/s, "
+        f"fast='auto' {fast_out['rays_per_sec']:.1f} rays/s")
+  _compare("render fast='off' vs 'auto'",
+           {'fine': {k: torch.from_numpy(v) for k, v in plain_out.items()
+                     if k in ('rgb', 'depth', 'acc')}},
+           {'fine': {k: torch.from_numpy(v) for k, v in fast_out.items()
+                     if k in ('rgb', 'depth', 'acc')}},
+           ('rgb', 'depth', 'acc'), RENDER_ATOL, RENDER_RTOL)
+  return counts
+
+
+def _plain_warp_step(seed, device):
+  """One bench-workload step with use_fused_warp=False (after a warm-up),
+  with the counts set to 0 just before it and read just after."""
+  config, train_config = configs.bench_train_config()
+  model, params = _train_model(
+      dataclasses.replace(config, use_fused_warp=False), seed, device)
+  check(model.fused_route and not model.use_fused_warp, 'route')
+  step = training.make_train_step(model, train_config, device)
+  batch = _train_batch(train_config.batch_size,
+                       train_config.background_points_batch_size, seed)
+  scalars = training.ScalarParams(**configs.BENCH_TRAIN_SCALARS)
+  generator = torch.Generator(device).manual_seed(seed)
+  state = training.create_train_state(params,
+                                      warp_alpha=configs.BENCH_WARP_ALPHA)
+  state, _ = step(generator, state, batch, scalars)
+  torch.cuda.synchronize()
+  fused_mlp.reset_launch_counts()
+  start = time.perf_counter()
+  state, stats = step(generator, state, batch, scalars)
+  torch.cuda.synchronize()
+  step_ms = (time.perf_counter() - start) * 1e3
+  counts = fused_mlp.launch_counts()
+  print(f'  fused step with the plain warp: {step_ms:.2f} ms; launches '
+        f'{counts}')
+  for name, want in PLAIN_WARP_STEP_LAUNCHES.items():
+    check(counts[name] == want, f'{name}: {counts[name]} launches, '
+          f'expected {want}')
+  for key, value in _flat_tree(stats):
+    check(bool(torch.isfinite(value)), f'stat {key} is not finite')
+  return counts
+
+
+def _matmul_split(ops):
+  """(ms in matmul kernels, ms in the rest) of profiled device ops."""
+  matmul = sum(ms for name, ms in ops
+               if any(mark in name.lower() for mark in MATMUL_MARKS))
+  return matmul, sum(ms for _, ms in ops) - matmul
+
+
+def phase_cli_plain(train_step_ms, work, device=torch.device('cuda', 0)):
+  """PLAIN_GIN through the training CLI at full width on the cli phase's
+  capture: run, resumed; then the gathered median in a fresh run."""
+  card = card_label()
+
+  def run(exp, max_steps, *bindings):
+    argv = ['--base_folder', str(exp), '--data_dir', str(work / 'scene'),
+            '--gin_configs', PLAIN_GIN, '--device', str(device)]
+    for binding in ('ExperimentConfig.image_scale = 1',
+                    f'TrainConfig.max_steps = {max_steps}',
+                    f'TrainConfig.save_every = {CLI_PLAIN_FIRST}',
+                    'TrainConfig.print_every = 1',
+                    'TrainConfig.log_every = 1000000',
+                    'TrainConfig.histogram_every = 1000000') + bindings:
+      argv += ['--gin_bindings', binding]
+    return train_cli.main(argv)
+
+  exp = work / 'exp_plain'
+  fused_mlp.reset_launch_counts()
+  torch.cuda.reset_peak_memory_stats()
+  first = run(exp, CLI_PLAIN_FIRST)
+  check(not first.setup.model.fused_route, f'{PLAIN_GIN} took the fused '
+        'route')
+  second = run(exp, CLI_PLAIN_LAST)
+  peak_gb = torch.cuda.max_memory_allocated() / 2**30
+  check(second.setup.init_step == CLI_PLAIN_FIRST + 1,
+        f'the second run starts at {second.setup.init_step}')
+  check(_same_state(second.setup.state, first.state),
+        'the restored state differs from the saved one')
+  print(f'  resumed at step {second.setup.init_step}; the restored state '
+        'equals the saved one bit for bit')
+  for result in (first, second):
+    for key, value in _flat_tree(result.stats):
+      check(np.isfinite(value), f'cli_plain stat {key} is {value}')
+  print('  stats of the last step: ' + ', '.join(
+      f'{k} {v:.5g}' for k, v in _flat_tree(second.stats)))
+  batch = first.setup.train_config.batch_size
+  step_s = [v for r in (first, second)
+            for v in r.time_tracker.values('train_step')]
+  step_ms = float(np.median(step_s)) * 1e3
+  print(f'  [{card}] plain CLI train_step median {step_ms:.2f} ms over '
+        f'{len(step_s)} steps ({[round(v * 1e3, 2) for v in step_s]}), '
+        f'{batch / step_ms * 1e3:.1f} rays/s; max_memory_allocated '
+        f'{peak_gb:.2f} GiB; against the fused train phase: '
+        f'{step_ms - train_step_ms:+.2f} ms ({step_ms / train_step_ms:.2f}x)')
+
+  model = second.setup.model
+  step = training.make_train_step(model, second.setup.train_config, device)
+  id_counts = tuple(max(ids, default=0) + 1 for ids in (
+      model.warp_ids, model.camera_ids, model.appearance_ids))
+  fake = _train_batch(batch, CLI_POINTS, 0, id_counts)
+  scalars = second.setup.scalar_params
+  try:
+    wall_ms, busy_ms, _, count, ops, aten = _profile(
+        lambda: step(training.step_generator(0, 1, device), second.state,
+                     fake, scalars), top=1 << 30)
+    matmul_ms, rest_ms = _matmul_split(ops)
+    print(f'  [{card}] profiled plain step: {wall_ms:.2f} ms wall, '
+          f'{busy_ms:.2f} ms device busy ({1 - busy_ms / wall_ms:.3f} idle '
+          f'share), {count} device ops; matmul kernels {matmul_ms:.2f} ms, '
+          f'the rest {rest_ms:.2f} ms; largest: ' + ', '.join(
+              f'{name[:60]} {ms:.2f}' for name, ms in ops[:6]))
+    print(f'  [{card}] profiled plain step by op (device ms of its own '
+          'launches): ' + ', '.join(f'{name} {ms:.2f}'
+                                    for name, ms in aten[:12]))
+  except Exception as e:  # the breakdown is a reading, not a check
+    print(f'  profiled plain step: not measured ({type(e).__name__}: {e})')
+
+  median = run(work / 'exp_median', CLI_MEDIAN_STEPS,
+               "TrainConfig.elastic_reduce_method = 'median'")
+  counts = fused_mlp.launch_counts()
+  check(not median.setup.model.use_warp_jacobian,
+        'the median run computes dense Jacobians')
+  elastic = float(median.stats['coarse']['loss/elastic'])
+  print(f'  gathered median, {CLI_MEDIAN_STEPS} steps: loss/elastic '
+        f'{elastic:.6g}, median train_step '
+        f'{np.median(median.time_tracker.values("train_step")) * 1e3:.2f} ms')
+  check(np.isfinite(elastic), f'loss/elastic is {elastic}')
+  print(f'  launches in the plain CLI runs: {counts}')
+  _check_no_launches('the plain route', counts)
+  return counts
 
 
 def card_label():
@@ -1405,7 +1669,7 @@ def phase_eval(work, device_name, device=torch.device('cuda', 0)):
       (f'culled chunk {PROFILE_BIG_CHUNK}', fast_state, culled_fn,
        PROFILE_BIG_CHUNK)):
     try:
-      wall_ms, busy_ms, ours, count, top = _profile(
+      wall_ms, busy_ms, ours, count, top, _ = _profile(
           lambda: evaluation.render_camera(frame_state, camera,
                                            item['metadata'], fn, chunk=chunk),
           top=6)
@@ -1478,7 +1742,10 @@ def main(argv=None):
     run_phase('parity', phase_parity, model, state, first_request)
     train_counts, train_numbers = run_phase('train', phase_train, args.seed)
     run_phase('train_parity', phase_train_parity, args.seed)
+    model_counts = run_phase('model', phase_model, args.seed, first_request)
     cli_counts = run_phase('cli', phase_cli, train_numbers['step_ms'], work)
+    cli_plain_counts = run_phase('cli_plain', phase_cli_plain,
+                                 train_numbers['step_ms'], work)
     eval_counts, eval_cases = run_phase('eval', phase_eval, work,
                                         device_name)
   except Exception as e:  # report the failing phase, then fail the run
@@ -1503,7 +1770,9 @@ def main(argv=None):
     k = kernels[name]
     by_path = {'serve': serve_counts.get(name, 0),
                'train': train_counts.get(name, 0),
+               'model': model_counts.get(name, 0),
                'cli': cli_counts.get(name, 0),
+               'cli_plain': cli_plain_counts.get(name, 0),
                'eval': eval_counts.get(name, 0)}
     for case in eval_cases.get(name, []):
       k['max_abs_err'] = max(k['max_abs_err'], case['max_abs_err'])

@@ -23,6 +23,13 @@ tensor and through their plain PyTorch versions on a CPU tensor:
   Nerfies capture with gin configs (`minigin.py`, `configs.py`),
   schedules, the data pipeline (`datasets/`) and checkpoints.
 
+Where JAX runs the Flax forward, `model.apply` (a train step without
+`use_fused_mlp`, as in every configs/gpu_*.gin; a render of a stratified
+model or of an architecture the serving path does not cover), the port
+runs `models.nerf.NerfModel.forward`: plain PyTorch whose products are
+`torch.matmul`, as JAX's are XLA dots outside any Pallas kernel. Each
+entry point picks its route by JAX's rule, never because a kernel failed.
+
 Entry points take `device=` (the CLI `--device`) and default to 'cuda'.
 Without a card they raise unless the caller passes device='cpu'; they
 never move to the CPU on their own.

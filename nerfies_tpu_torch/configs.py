@@ -6,13 +6,14 @@ configs/*.gin zoo parses unchanged. The activations that gin files name
 as `@nn.relu`, `@nn.softplus`, ... resolve to the port's activation
 names ('relu', 'softplus', ...), the keys of ACTIVATIONS.
 
-The port trains only through the fused path (fused_train.model_forward,
-bf16 kernels with ReLU between layers), as the JAX train step does when
-`use_fused_mlp` is set and fused_train.supported holds; a config that
-JAX trains through `model.apply` is refused (fused_train.check_trainable).
-`use_bfloat16` does not change that path, in JAX or here, and
-`use_remat` / `remat_policy` only trade memory in JAX: the port keeps
-them for the zoo and reads neither.
+The train step takes JAX's route: the fused path (fused_train.model_forward,
+bf16 kernels with ReLU between layers) when `use_fused_mlp` is set and
+fast_render.supported holds, whatever `use_bfloat16` says, and the plain
+forward (NerfModel.forward, JAX's `model.apply`) otherwise. The plain
+forward reads `use_bfloat16` (bf16 products, as the Flax modules),
+`activation`, and `use_remat` / `remat_policy` (torch.utils.checkpoint
+per NeRF MLP level and per warp field call; 'dots' keeps the products'
+outputs), which trade memory for time and leave the results as they are.
 """
 
 import dataclasses
@@ -102,7 +103,8 @@ class ModelConfig:
   use_bfloat16: bool = False
   use_remat: bool = True
   remat_policy: str = 'dots'
-  # The fused train path: the only one the port has.
+  # The fused train path (the kernels); False trains through the plain
+  # forward, as JAX's model.apply.
   use_fused_mlp: bool = False
   use_fused_warp: bool = True
 

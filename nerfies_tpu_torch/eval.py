@@ -14,9 +14,10 @@ PNGs, and keeps the renders of the newest `max_render_checkpoints`:
 `--fast_preview` renders 32 + 64 samples a ray culled to 16 + 32 through
 an occupancy grid that is baked anew from every checkpoint. `--device
 cpu` runs the plain PyTorch path; without it the CLI needs a card. A
-model that the JAX eval renders through `model.apply` (one that
-`fast_render.supported` does not cover) is refused before any data is
-read. TensorBoard is optional.
+model that `fast_render.supported` does not cover renders through
+NerfModel.forward, as the JAX eval renders it through `model.apply`, and
+unculled, with a warning, if culling was asked for. TensorBoard is
+optional.
 
 `main` returns what the run measured (`Result`).
 """
@@ -106,8 +107,7 @@ def parse_configs(gin_configs: Sequence[str],
                   fast_preview: bool = False):
   """Parses the gin files and bindings into the four configs.
 
-  Clears earlier bindings first; refuses a model config that JAX renders
-  through model.apply; applies the fast_preview preset.
+  Clears earlier bindings first; applies the fast_preview preset.
 
   Returns:
     (ExperimentConfig, ModelConfig, TrainConfig, EvalConfig).
@@ -120,7 +120,6 @@ def parse_configs(gin_configs: Sequence[str],
   model_config = configs.ModelConfig(use_stratified_sampling=False)
   train_config = configs.TrainConfig()
   eval_config = configs.EvalConfig()
-  evaluation.check_renderable(model_config)
   apply_fast_preview(eval_config, fast_preview)
   return exp_config, model_config, train_config, eval_config
 
@@ -415,6 +414,11 @@ def evaluate(args: argparse.Namespace) -> Result:
   time_alpha_sched = schedules.from_config(train_config.time_alpha_schedule)
   state = training.create_train_state(params)
   render_fn = evaluation.make_render_fn(model, device=device)
+  if eval_config.use_occupancy_culling and not render_fn.fast:
+    log.warning('EvalConfig.use_occupancy_culling is set but the model is '
+                'not covered by the fused serving path '
+                '(fast_render.supported); rendering unculled.')
+    eval_config.use_occupancy_culling = False
 
   lpips_fn = None
   if eval_config.compute_lpips:

@@ -1,7 +1,8 @@
 """Full-image rendering for serving.
 
 Port of `make_render_fn`, `render_camera` and `render_image`
-(nerfies_tpu/evaluation.py:26-324). The JAX package renders an image in
+(nerfies_tpu/evaluation.py:26-324), through the serving kernels or the
+plain forward as JAX picks. The JAX package renders an image in
 one jitted `lax.map` over chunks; here a Python loop over chunks queues
 each chunk's work on the card's stream and fetches the outputs once at
 the end. `render_camera` makes the rays on the device from the camera's
@@ -19,6 +20,7 @@ import torch
 from nerfies_tpu_torch import camera as camera_lib
 from nerfies_tpu_torch import fast_render
 from nerfies_tpu_torch import resolve_device
+from nerfies_tpu_torch import utils
 
 
 @dataclasses.dataclass
@@ -48,56 +50,54 @@ def _to_device(rays: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
   return out
 
 
-def check_renderable(model_config) -> None:
-  """Refuses a model or ModelConfig that JAX renders through model.apply.
-
-  The JAX render function takes the fused serving path when the model
-  samples deterministically (the eval's ModelConfig forces it) and
-  `fast_render.supported(model)` holds (nerfies_tpu/evaluation.py:54-55);
-  otherwise it runs the Flax forward, which the port lacks (ROADMAP Queue
-  1 item 8).
-
-  Raises:
-    NotImplementedError: naming the missing path.
-  """
-  if not fast_render.supported(model_config):
-    raise NotImplementedError(
-        'the JAX eval renders this config through model.apply, the Flax '
-        'forward, which is not ported (ROADMAP Queue 1 item 8): '
-        'fast_render.supported(model) is False')
-
-
 def make_render_fn(model, use_warp: bool = True, device='cuda',
-                   occupancy=None, keep_samples=None) -> Callable:
+                   fast: str = 'auto', occupancy=None,
+                   keep_samples=None) -> Callable:
   """Builds the per-chunk render function.
 
-  Returns a callable (params, rays_dict, warp_extra) -> the model output
-  dict of `fast_render.render_rays` for a flat ray batch, with the rays
-  moved to `device` (the params must already lie there). The callable's
-  `device` attribute names that device.
+  Returns a callable (params, rays_dict, warp_extra, generator=None) ->
+  the model output dict for a flat ray batch, with the rays moved to
+  `device` (the params must already lie there). Its `device` attribute
+  names that device, and `stratified` whether it draws from `generator`.
+
+  As in JAX (nerfies_tpu/evaluation.py:54-77), `fast='auto'` renders
+  through the serving kernels (`fast_render.render_rays`) when the model
+  samples deterministically and `fast_render.supported(model)` holds;
+  otherwise, and always with `fast='off'`, through NerfModel.forward,
+  which draws a stratified model's samples from `generator`.
 
   `occupancy` (an occupancy.OccupancyGrid baked from the model's density)
-  with `keep_samples=(k_coarse, k_fine)` culls empty space
-  (`fast_render.render_rays`).
-
-  Raises:
-    NotImplementedError: for a model the fast path does not cover (the
-      JAX package falls back to `model.apply` there, which is not ported).
+  with `keep_samples=(k_coarse, k_fine)` culls empty space on the serving
+  path (`fast_render.render_rays`); the plain path ignores it.
   """
   device = resolve_device(device)
-  if model.use_stratified_sampling:
-    raise NotImplementedError('serving renders deterministically; the '
-                              'model uses stratified sampling')
-  check_renderable(model)
+  if fast not in ('auto', 'off'):
+    raise ValueError(f"fast must be 'auto' or 'off', not {fast!r}")
+  use_fast = (fast == 'auto' and not model.use_stratified_sampling
+              and fast_render.supported(model))
 
-  def render_fn(params, rays_dict, warp_extra):
-    return fast_render.render_rays(params, _to_device(rays_dict, device),
-                                   warp_extra, model, use_warp=use_warp,
-                                   occupancy=occupancy,
-                                   keep_samples=keep_samples)
+  def render_fn(params, rays_dict, warp_extra, generator=None):
+    rays = _to_device(rays_dict, device)
+    if use_fast:
+      return fast_render.render_rays(params, rays, warp_extra, model,
+                                     use_warp=use_warp, occupancy=occupancy,
+                                     keep_samples=keep_samples)
+    with torch.no_grad():
+      return model(params, rays, warp_extra, use_warp=use_warp,
+                   coarse_generator=generator, fine_generator=generator)
 
   render_fn.device = device
+  render_fn.fast = use_fast
+  render_fn.stratified = model.use_stratified_sampling
   return render_fn
+
+
+def _chunk_generator(model_fn, seed: int, index: int):
+  """A stratified render's stream for chunk `index`, folded from `seed`
+  (`fold_in(rng, chunk)` in JAX); None for a deterministic one."""
+  if not model_fn.stratified:
+    return None
+  return utils.fold_in(seed, index, model_fn.device)
 
 
 def _check_ret_key(default_ret_key):
@@ -124,7 +124,8 @@ def render_camera(state,
                   metadata_ids: Dict[str, Any],
                   model_fn: Callable,
                   chunk: int = 8192,
-                  default_ret_key: Optional[str] = None) -> Dict[str, Any]:
+                  default_ret_key: Optional[str] = None,
+                  seed: int = 0) -> Dict[str, Any]:
   """Renders a camera's full image with the rays made on the device.
 
   Only the camera parameters and the per-image metadata ids go to the
@@ -140,7 +141,7 @@ def render_camera(state,
     metadata_ids: scalar per-image ids, e.g. {'warp': 0, 'appearance': 0,
       'camera': 0, 'time': 0.3}; integers except 'time' (float32).
     model_fn: callable from `make_render_fn`.
-    chunk / default_ret_key: as `render_image`.
+    chunk / default_ret_key / seed: as `render_image`.
 
   Returns:
     Dict of (H, W, ...) numpy maps plus render_time / rays_per_sec.
@@ -171,7 +172,8 @@ def render_camera(state,
                           dtype=torch.float32 if k == 'time' else torch.int64)
             for k, v in metadata_ids.items()},
     }
-    out = model_fn(state.params, rays, state.warp_extra)
+    out = model_fn(state.params, rays, state.warp_extra,
+                   _chunk_generator(model_fn, seed, lo // chunk))
     level = default_ret_key or ('fine' if 'fine' in out else 'coarse')
     level_outs.append(out[level])
   return _gather_levels(level_outs, num_rays, h, w, start)
@@ -181,7 +183,8 @@ def render_image(state,
                  rays_dict: Dict[str, Any],
                  model_fn: Callable,
                  chunk: int = 8192,
-                 default_ret_key: Optional[str] = None) -> Dict[str, Any]:
+                 default_ret_key: Optional[str] = None,
+                 seed: int = 0) -> Dict[str, Any]:
   """Renders every pixel of an image in fixed-size ray chunks.
 
   The last chunk is padded to the full chunk with copies of the last ray
@@ -193,6 +196,7 @@ def render_image(state,
     model_fn: callable from `make_render_fn`.
     chunk: rays per call; bounds peak activation memory.
     default_ret_key: 'fine' or 'coarse'; defaults to the finest level.
+    seed: a stratified model's chunk i draws from fold_in(seed, i).
 
   Returns:
     Dict of (H, W, ...) numpy maps rgb, depth, med_depth, acc, plus
@@ -225,7 +229,8 @@ def render_image(state,
   level_outs = []
   for lo in range(0, num_rays, chunk):
     hi = min(lo + chunk, num_rays)
-    out = model_fn(state.params, take(rays, lo, hi), state.warp_extra)
+    out = model_fn(state.params, take(rays, lo, hi), state.warp_extra,
+                   _chunk_generator(model_fn, seed, lo // chunk))
     level = default_ret_key or ('fine' if 'fine' in out else 'coarse')
     level_outs.append(out[level])
   return _gather_levels(level_outs, num_rays, h, w, start)

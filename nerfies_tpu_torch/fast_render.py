@@ -113,26 +113,6 @@ def _apply_warp_fused(params, model, points, warp_ids, warp_extra):
   return rigid.se3_apply_raw(w, v, points.float())
 
 
-def _conditions(params, model, viewdirs, metadata):
-  """Per-ray rgb condition (B, C) and alpha condition (B, C_a) or None."""
-  rgb_conditions = []
-  alpha_condition = None
-  if model.use_viewdirs:
-    rgb_conditions.append(encoding.posenc(
-        viewdirs, num_freqs=model.num_nerf_viewdir_freqs))
-  if model.use_appearance_metadata:
-    code = _glo_lookup(params['appearance_encoder'], metadata['appearance'])
-    if model.use_alpha_condition:
-      alpha_condition = code
-    if model.use_rgb_condition:
-      rgb_conditions.append(code)
-  if model.use_camera_metadata:
-    rgb_conditions.append(_glo_lookup(params['camera_encoder'],
-                                      metadata['camera']))
-  rgb_condition = torch.cat(rgb_conditions, -1) if rgb_conditions else None
-  return rgb_condition, alpha_condition
-
-
 def _render_level(params, model, level, points, z_vals, directions,
                   viewdirs, metadata, warp_extra, use_warp, occupancy=None,
                   keep=None):
@@ -152,8 +132,8 @@ def _render_level(params, model, level, points, z_vals, directions,
   b, s = points.shape[:2]
   pe = encoding.posenc(points, num_freqs=model.num_nerf_point_freqs)
   c_pe = pe.shape[-1]
-  rgb_condition, alpha_condition = _conditions(params, model, viewdirs,
-                                               metadata)
+  _, alpha_condition, rgb_condition = model.get_condition_inputs(
+      params, viewdirs, metadata)
   mlp_params = params[f'nerf_mlps_{level}']
   width = mlp_params['trunk_hidden_0']['kernel'].shape[1]
   rgb_row_bias = None

@@ -3,7 +3,8 @@
 Port of nerfies_tpu/fused_train.py:46-263. Sampling, the ray conditions,
 the SE(3) action and compositing are plain differentiable PyTorch; the
 warp trunk runs through `ops.fused_warp.warp_mlp_train` (the primal and,
-at the coarse level, the three Jacobian tangent chains) and the NeRF MLP
+at the coarse level, the three Jacobian tangent chains), or through the
+plain warp field when `use_fused_warp` is False, and the NeRF MLP
 through `ops.fused_mlp.nerf_mlp_train`, autograd Functions whose forward
 and backward are hand-written kernels on a CUDA tensor and plain versions
 on a CPU tensor.
@@ -40,37 +41,25 @@ def supported(model) -> bool:
 
 
 def check_trainable(model) -> None:
-  """Refuses a model or ModelConfig that JAX would not train fused.
+  """Refuses a model or ModelConfig whose fused route the port cannot run.
 
-  The JAX train step runs fused_train.model_forward only when
-  `use_fused_mlp` and `supported(model)` hold (nerfies_tpu/training.py:
-  277), whatever `use_bfloat16` says; otherwise it runs the Flax forward,
-  `model.apply`, which the port lacks (ROADMAP Queue 1 item 8).
-  `use_fused_warp=False` sends the warp through the Flax module, so it is
-  refused too. An `activation` other than relu is refused as well: the
-  kernels apply ReLU between layers, and JAX's fused path trains such a
-  config with ReLU, ignoring the field.
+  The JAX train step runs fused_train.model_forward when `use_fused_mlp`
+  and `supported(model)` hold (nerfies_tpu/training.py:277), whatever
+  `use_bfloat16` says, and the Flax forward otherwise, which the port
+  runs as NerfModel.forward. On the fused route the kernels apply ReLU
+  between layers, and JAX's fused path trains an `activation` other than
+  relu with ReLU, ignoring the field; the port refuses that config. On
+  the plain route the activation is honoured, as in JAX.
 
   Raises:
-    NotImplementedError: saying which switch asks for another path.
+    NotImplementedError: for another activation on the fused route.
   """
-  reasons = []
-  if not model.use_fused_mlp:
-    reasons.append('use_fused_mlp is False')
-  elif not supported(model):
-    reasons.append('fused_train.supported(model) is False')
-  if model.use_warp and not model.use_fused_warp:
-    reasons.append('use_fused_warp is False (the Flax warp module)')
-  if reasons:
+  if model.use_fused_mlp and supported(model) and model.activation != 'relu':
     raise NotImplementedError(
-        'the JAX train step runs this config through model.apply, the Flax '
-        'forward, which is not ported (ROADMAP Queue 1 item 8): '
-        + '; '.join(reasons))
-  if model.activation != 'relu':
-    raise NotImplementedError(
-        f'activation {model.activation!r}: the fused kernels apply relu '
-        'between layers (the JAX fused path ignores the field); another '
-        'activation needs the Flax forward (ROADMAP Queue 1 item 8)')
+        f'activation {model.activation!r} on the fused route: the fused '
+        'kernels apply relu between layers (the JAX fused path ignores the '
+        'field); set use_fused_mlp = False for the plain forward, which '
+        'honours it')
 
 
 def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -219,8 +208,6 @@ def model_forward(model,
   if not supported(model):
     raise NotImplementedError('the fused training path does not cover this '
                               'model (fused_train.supported)')
-  if model.use_warp and model.warp_metadata_encoder_type != 'glo':
-    raise NotImplementedError('only the GLO warp metadata encoder is ported')
   stratified = model.use_stratified_sampling
   if stratified and (coarse_generator is None or fine_generator is None):
     raise ValueError('stratified sampling needs a generator per level')
@@ -230,8 +217,8 @@ def model_forward(model,
   directions = batch['directions']
   metadata = batch['metadata']
   viewdirs = batch.get('viewdirs', directions)
-  rgb_condition, alpha_condition = fast_render._conditions(
-      params, model, viewdirs, metadata)
+  _, alpha_condition, rgb_condition = model.get_condition_inputs(
+      params, viewdirs, metadata)
 
   def level_outputs(level, points, z_vals, use_warp_jacobian, want_weights,
                     generator):
@@ -240,8 +227,14 @@ def model_forward(model,
       out['points'] = points
     mlp_points = points
     if model.use_warp:
-      warp_out = apply_warp(model, params, points, metadata['warp'],
-                            warp_extra, use_warp_jacobian)
+      # use_fused_warp=False sends the warp through the plain field, as
+      # JAX sends it through the Flax module (fused_train.py:215-227).
+      if model.use_fused_warp:
+        warp_out = apply_warp(model, params, points, metadata['warp'],
+                              warp_extra, use_warp_jacobian)
+      else:
+        warp_out = model.warp_field(params, points, metadata['warp'],
+                                    warp_extra, use_warp_jacobian)
       mlp_points = warp_out['warped_points']
       if 'jacobian' in warp_out:
         out['warp_jacobian'] = warp_out['jacobian']

@@ -72,7 +72,6 @@ def render(args: argparse.Namespace) -> List[Path]:
   exp_config = configs.ExperimentConfig()
   model_config = configs.ModelConfig(use_stratified_sampling=False)
   train_config = configs.TrainConfig()
-  evaluation.check_renderable(model_config)
 
   datasource = datasets.from_config(
       {'type': exp_config.datasource_type, 'data_dir': args.data_dir},
@@ -100,7 +99,8 @@ def render(args: argparse.Namespace) -> List[Path]:
   warp_alpha = schedules.from_config(train_config.warp_alpha_schedule)(
       state.step)
   log.info('Restored checkpoint at step %d', state.step)
-  state = evaluation.RenderState(state.params, warp_alpha=float(warp_alpha))
+  state = evaluation.RenderState(state.params, warp_alpha=float(warp_alpha),
+                                 time_alpha=float(state.time_alpha))
 
   cameras = datasource.load_test_cameras()
   if not cameras:

@@ -3,15 +3,17 @@
 The counterpart of train.py (the JAX package's CLI) for one CUDA device:
 the same flags, gin configs, data pipeline, schedules, logging cadence and
 checkpoint layout, with each step through training.make_train_step (the
-fused kernels on a CUDA card, their plain versions on the CPU):
+fused kernels, or NerfModel.forward where JAX runs `model.apply`):
 
   python -m nerfies_tpu_torch.train --base_folder EXP --data_dir SCENE \\
-      --gin_configs configs/tpu_vrig_paper.gin
+      --gin_configs configs/gpu_vrig_paper.gin
 
-`--device cpu` runs the plain PyTorch path; without it the CLI needs a
-card. A config that the JAX train step runs through `model.apply`
-(`use_fused_mlp` False, as in every configs/gpu_*.gin and test_*.gin) is
-refused before any data is read: bind `ModelConfig.use_fused_mlp = True`.
+`--device cpu` runs on the CPU (the kernels' plain versions); without it
+the CLI needs a card. The step takes JAX's route: the fused kernels when
+`use_fused_mlp` is set and the architecture is covered (as in
+configs/tpu_*.gin), the plain forward otherwise (every configs/gpu_*.gin
+and test_*.gin). Only an activation other than relu on the fused route is
+refused, before any data is read.
 
 The set-up (`setup`: configs through the restored state) and the loop
 (`train`) are separate functions; `main` runs both and returns what they
@@ -69,7 +71,8 @@ def parse_configs(gin_configs: Sequence[str],
   """Parses the gin files and bindings into the four configs.
 
   Clears earlier bindings first, so a second call in one process parses
-  afresh. Refuses a model config that JAX trains through model.apply.
+  afresh. Refuses a model config whose fused route the port cannot run
+  (fused_train.check_trainable).
 
   Returns:
     (ExperimentConfig, ModelConfig, TrainConfig).
@@ -87,9 +90,7 @@ def parse_configs(gin_configs: Sequence[str],
 
 def construct_model(model_config, train_config, datasource, seed: int,
                     device):
-  """The model and params of train.py:174-190, refused where JAX trains
-  through model.apply (fused_train.check_trainable)."""
-  fused_train.check_trainable(model_config)
+  """The model and params of train.py:174-190."""
   return models.construct_nerf(
       model_config,
       appearance_ids=datasource.appearance_ids,

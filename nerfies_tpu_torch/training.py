@@ -1,7 +1,9 @@
 """Training: the loss stack and the optimizer step.
 
-Port of nerfies_tpu/training.py:35-330, for one device. The forward goes
-through fused_train.model_forward (the fused kernels); the losses are
+Port of nerfies_tpu/training.py:35-330, for one device. The forward takes
+JAX's route (nerfies_tpu/training.py:277): fused_train.model_forward (the
+fused kernels) when `use_fused_mlp` and fused_train.supported hold, else
+NerfModel.forward (the plain `model.apply`); the losses are
 plain differentiable PyTorch; the gradient is one autograd pass; Adam is
 written out on tensors, equal to `optax.scale_by_adam(0.9, 0.999, 1e-8)`
 followed by a step of -learning_rate, as in the JAX step. Updates are
@@ -13,9 +15,10 @@ ids and noise) come from one torch.Generator on the batch's device, in
 the order coarse level, fine level, background; the JAX step splits its
 key instead, so the two draw different numbers.
 
-Not ported yet: the gathered-median elastic path (`_median_jacobian`,
-used when the model computes no dense Jacobian) raises
-NotImplementedError, and the mesh-sharded step waits for its own slice.
+The 'median' elastic reduction without dense Jacobians linearizes the
+plain warp field at each ray's median-depth point (`_median_jacobian`),
+as JAX does. Not ported yet: the mesh-sharded step waits for its own
+slice.
 The training CLI (train.py) drives `make_train_step` with the schedules
 (schedules.py), the data pipeline (datasets/) and checkpoints
 (checkpoints.py).
@@ -29,6 +32,7 @@ import torch
 from nerfies_tpu_torch import evaluation
 from nerfies_tpu_torch import fused_train
 from nerfies_tpu_torch import resolve_device
+from nerfies_tpu_torch import utils
 from nerfies_tpu_torch.ops import fused_mlp
 from nerfies_tpu_torch.ops import mathutils
 from nerfies_tpu_torch.ops import rendering
@@ -174,10 +178,11 @@ def compute_background_loss(model, state: TrainState, params, points,
   """Penalizes warping of known-static background points (training.py:137).
 
   Re-applies the warp field, with the params the ray march uses, to the
-  points plus noise_std times normal noise, each under a random warp id.
-  The warp runs through the fused kernel with no tangents, the same
-  function as the JAX package's flax `apply_warp` (tests/
-  test_fused_train.py pins the two together).
+  points plus noise_std times normal noise, each under a random warp id,
+  through NerfModel.apply_warp: on the fused route with use_fused_warp the
+  fused kernel with no tangents, the same function as the JAX package's
+  flax `apply_warp` (tests/test_fused_train.py pins the two together);
+  otherwise the plain field, as in JAX.
 
   Args:
     points: (P, 3) background points.
@@ -240,6 +245,20 @@ def train_step(model,
   """
   params = state.params
 
+  def median_jacobian(model_out):
+    """The (3, 3, B, 1) warp Jacobians at each ray's median-depth point
+    (training.py:186-212): the pre-warp points gathered by the detached
+    coarse weights, linearized through the plain field."""
+    index = rendering.compute_depth_index(model_out['weights'].detach())
+    points = torch.gather(model_out['points'], 1,
+                          index[:, None, None].expand(-1, 1, 3))
+    metadata = batch['metadata']
+    warp_metadata = (metadata['time']
+                     if model.warp_metadata_encoder_type == 'time'
+                     else metadata['warp'])
+    return model.warp_field(params, points, warp_metadata, state.warp_extra,
+                            return_jacobian=True)['jacobian']
+
   def level_loss(model_out, level_uses_elastic):
     rgb_loss = ((model_out['rgb'] - batch['rgb'][..., :3]) ** 2).mean()
     stats = {'loss/rgb': rgb_loss}
@@ -247,12 +266,12 @@ def train_step(model,
     stats_jacobian = model_out.get('warp_jacobian')
     if level_uses_elastic:
       if elastic_reduce_method == 'median':
-        if 'warp_jacobian' not in model_out:
-          raise NotImplementedError(
-              'the gathered-median elastic path (_median_jacobian) is not '
-              'ported; build the model with use_warp_jacobian=True')
-        jacobian = _take_depth(model_out['warp_jacobian'],
-                               model_out['weights'])
+        if 'warp_jacobian' in model_out:
+          jacobian = _take_depth(model_out['warp_jacobian'],
+                                 model_out['weights'])
+        else:
+          # The stats then cover the gathered samples, as in JAX.
+          jacobian = stats_jacobian = median_jacobian(model_out)
       else:
         jacobian = model_out['warp_jacobian']
       elastic_loss, elastic_residual = compute_elastic_loss(
@@ -289,10 +308,15 @@ def train_step(model,
       use_elastic_loss and elastic_reduce_method == 'median')
   coarse_gen = fine_gen = (generator if model.use_stratified_sampling
                            else None)
-  ret = fused_train.model_forward(
-      model, params, batch, state.warp_extra, coarse_gen, fine_gen,
-      return_points=need_points,
-      return_weights=use_warp_reg_loss or use_elastic_loss)
+  return_weights = use_warp_reg_loss or use_elastic_loss
+  if model.fused_route:
+    ret = fused_train.model_forward(
+        model, params, batch, state.warp_extra, coarse_gen, fine_gen,
+        return_points=need_points, return_weights=return_weights)
+  else:
+    ret = model(params, batch, state.warp_extra, return_points=need_points,
+                return_weights=return_weights, coarse_generator=coarse_gen,
+                fine_generator=fine_gen)
   losses, stats = {}, {}
   if 'fine' in ret:
     losses['fine'], stats['fine'] = level_loss(ret['fine'], False)
@@ -329,8 +353,7 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
   A run resumed at a step draws there what an unbroken run draws.
   """
-  mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(step)) % (1 << 63)
-  return torch.Generator(device).manual_seed(mixed)
+  return utils.fold_in(seed, step, device)
 
 
 def make_train_step(model, train_config, device='cuda'):
@@ -342,9 +365,11 @@ def make_train_step(model, train_config, device='cuda'):
   (numpy arrays or tensors) to `device` first. The state's params must
   already lie there. Runs on the card unless told device='cpu'.
 
+  The step takes the model's route (NerfModel.fused_route).
+
   Raises:
-    NotImplementedError: for a model that JAX trains through model.apply
-      (fused_train.check_trainable).
+    NotImplementedError: for an activation other than relu on the fused
+      route (fused_train.check_trainable).
   """
   device = resolve_device(device)
   fused_train.check_trainable(model)

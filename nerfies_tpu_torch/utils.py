@@ -1,7 +1,8 @@
 """Host-side helpers of the training loop: a thread-pool map and meters.
 
 Port of the parts of nerfies_tpu/utils.py that the training and eval CLIs
-use: `parallel_map`, `strided_subset`, `ValueMeter` and `TimeTracker`.
+use: `parallel_map`, `strided_subset`, `ValueMeter` and `TimeTracker`;
+and `fold_in`, the port's `random.fold_in`.
 """
 
 import collections
@@ -10,6 +11,14 @@ import time
 from concurrent import futures
 
 import numpy as np
+import torch
+
+
+def fold_in(seed: int, index: int, device) -> torch.Generator:
+  """A generator on `device` seeded from (seed, index), the counterpart of
+  `random.fold_in(rng, index)`: a step's or a render chunk's stream."""
+  mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(index)) % (1 << 63)
+  return torch.Generator(device).manual_seed(mixed)
 
 
 def parallel_map(f, iterable, max_threads=None, show_pbar=False, **kwargs):

@@ -3,9 +3,10 @@
 Every schedule type and `from_config` form gives exactly the JAX value at
 steps 0 to 300,000; every file of configs/ parses in both minigins to
 equal configs (activations compared by name); the port's operative config
-parses back in the JAX minigin to the same bindings. The port refuses, at
-model construction and before any data is read, the configs that the JAX
-train step runs through `model.apply`.
+parses back in the JAX minigin to the same bindings. Every config takes
+the JAX train step's route, fused or through `model.apply`; the one
+refusal left (another activation on the fused route) fires before any
+data is read.
 """
 
 import argparse
@@ -164,7 +165,7 @@ def test_operative_config_parses_back_in_jax(name):
   _assert_configs_equal(name)
 
 
-# ---------------------------------------------------------------- the guard
+# ------------------------------------------------------- the route and guard
 
 def _ids_source(model_config):
   ids = tuple(range(3))
@@ -181,12 +182,66 @@ def _jax_takes_the_fused_path(model_config):
   return bool(model.use_fused_mlp and jax_fused_train.supported(model))
 
 
+def _port_route(model):
+  """(fused, fused warp) of the port's model."""
+  return model.fused_route, model.fused_route and model.use_fused_warp
+
+
+def _jax_route(model_config):
+  fused = _jax_takes_the_fused_path(model_config)
+  return fused, fused and model_config.use_fused_warp
+
+
 @pytest.mark.parametrize('name', APPLY_GIN)
-def test_configs_that_jax_trains_through_apply_raise(name):
-  with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 8'):
-    train.parse_configs([str(ZOO / f'{name}.gin')])
+def test_configs_that_jax_trains_through_apply_take_the_plain_route(name):
+  """Every configs/gpu_*.gin and test_*.gin builds and trains through
+  NerfModel.forward, as JAX trains it through model.apply; the elastic
+  loss's dense Jacobians unless its reduction is 'median'."""
+  _, model_config, train_config = train.parse_configs([str(ZOO / f'{name}.gin')])
   jax_gin.parse_config_files_and_bindings(config_files=[ZOO / f'{name}.gin'])
   assert not _jax_takes_the_fused_path(jax_configs.ModelConfig())
+  model, params = train.construct_model(model_config, train_config,
+                                        _ids_source(model_config), 0, 'cpu')
+  assert not model.fused_route and 'nerf_mlps_coarse' in params
+  assert model.use_warp_jacobian == (
+      train_config.use_elastic_loss
+      and train_config.elastic_reduce_method != 'median')
+
+
+_OVERRIDES = {
+    'no_fused_mlp': dict(use_fused_mlp=False),
+    'trunk_condition': dict(use_fused_mlp=True, use_trunk_condition=True),
+    'se3_pivot': dict(use_fused_mlp=True, use_warp=True,
+                      warp_field_type='se3', warp_kwargs={'use_pivot': True}),
+    'flax_warp': dict(use_fused_mlp=True, use_warp=True,
+                      use_fused_warp=False),
+    'time_encoder': dict(use_fused_mlp=True, use_warp=True,
+                         warp_metadata_encoder_type='time'),
+    'f32_fused': dict(use_fused_mlp=True, use_warp=True,
+                      use_bfloat16=False),
+}
+
+
+@pytest.mark.parametrize('case', [f'gin:{n}' for n in LEAF_GIN]
+                         + sorted(_OVERRIDES))
+def test_route_matches_jax(case):
+  """The port's route (fused, and the warp kernel inside it) equals
+  nerfies_tpu/training.py:277 and fused_train.py:215 for every leaf
+  config of configs/ and every override."""
+  if case.startswith('gin:'):
+    files = [ZOO / f'{case[4:]}.gin']
+    _, config, train_config = train.parse_configs([str(f) for f in files])
+    jax_gin.parse_config_files_and_bindings(config_files=files)
+    jax_config = jax_configs.ModelConfig()
+  else:
+    config = configs.ModelConfig(**_OVERRIDES[case])
+    train_config = configs.TrainConfig(batch_size=8)
+    jax_config = jax_configs.ModelConfig(**_OVERRIDES[case])
+  config = dataclasses.replace(config, nerf_trunk_width=32,
+                               nerf_rgb_branch_width=32)
+  model, _ = train.construct_model(config, train_config, _ids_source(config),
+                                   0, 'cpu')
+  assert _port_route(model) == _jax_route(jax_config)
 
 
 @pytest.mark.parametrize('name', LEAF_GIN)
@@ -212,21 +267,6 @@ def test_f32_config_on_the_fused_path_is_trainable():
   assert _jax_takes_the_fused_path(jax_config)
 
 
-@pytest.mark.parametrize('overrides', [
-    dict(use_fused_mlp=False),
-    dict(use_fused_mlp=True, use_trunk_condition=True),
-    dict(use_fused_mlp=True, use_warp=True, warp_field_type='se3',
-         warp_kwargs={'use_pivot': True}),
-    dict(use_fused_mlp=True, use_warp=True, use_fused_warp=False),
-], ids=['no_fused_mlp', 'trunk_condition', 'se3_pivot', 'flax_warp'])
-def test_guard_refuses_what_jax_trains_otherwise(overrides):
-  with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 8'):
-    fused_train.check_trainable(configs.ModelConfig(**overrides))
-  jax_config = jax_configs.ModelConfig(**overrides)
-  jax_fused = _jax_takes_the_fused_path(jax_config)
-  assert not (jax_fused and jax_config.use_fused_warp)
-
-
 def test_activation_other_than_relu_raises():
   """JAX's fused path ignores `activation`: it trains such a config with
   ReLU between layers (fused_train.supported does not read the field).
@@ -238,14 +278,26 @@ def test_activation_other_than_relu_raises():
                                                     activation='elu'))
 
 
-def test_guard_fires_before_the_data_is_read(tmp_path):
+@pytest.mark.parametrize('case', ['gpu_quarterhd', 'elu_on_the_fused_route'])
+def test_only_the_activation_guard_fires_before_the_data_is_read(case,
+                                                                 tmp_path):
+  """configs/gpu_quarterhd.gin goes on to read the (missing) data; the
+  one refusal left, another activation on the fused route, fires first."""
+  bindings = None
+  if case == 'elu_on_the_fused_route':
+    bindings = ['ModelConfig.use_fused_mlp = True',
+                'ModelConfig.activation = @nn.elu']
   args = argparse.Namespace(
       base_folder=str(tmp_path / 'exp'), data_dir=str(tmp_path / 'missing'),
-      gin_configs=[str(ZOO / 'gpu_quarterhd.gin')], gin_bindings=None,
+      gin_configs=[str(ZOO / 'gpu_quarterhd.gin')], gin_bindings=bindings,
       profile_dir=None, device='cpu')
-  with pytest.raises(NotImplementedError, match='use_fused_mlp is False'):
-    train.setup(args)
-  assert not (tmp_path / 'exp').exists()
+  if bindings:
+    with pytest.raises(NotImplementedError, match="activation 'elu'"):
+      train.setup(args)
+    assert not (tmp_path / 'exp').exists()
+  else:
+    with pytest.raises(FileNotFoundError):
+      train.setup(args)
 
 
 def test_bench_configs_take_the_fused_path():

@@ -50,6 +50,7 @@ from nerfies_tpu_torch import utils
 from nerfies_tpu_torch import visualization
 from nerfies_tpu_torch.datasets import synthetic
 from nerfies_tpu_torch.ops import ssim
+from tests import torch_parity
 
 jax_eval = importlib.import_module('eval')
 
@@ -504,8 +505,22 @@ _UNSUPPORTED = {
 }
 
 
+_SE3 = torch_parity.SMALL_MODEL['warp_kwargs']
+_RENDER_MODELS = {
+    'trunk_condition': dict(use_appearance_metadata=True,
+                            use_trunk_condition=True),
+    'time_encoder': dict(warp_metadata_encoder_type='time'),
+    'pivot': dict(warp_kwargs={**_SE3, 'use_pivot': True}),
+    'supported': dict(),
+}
+
+
 @pytest.mark.parametrize('case', sorted(_UNSUPPORTED) + ['supported'])
-def test_guard_refuses_what_jax_renders_through_model_apply(case, tmp_path):
+def test_eval_renders_what_jax_renders_through_model_apply(case, tmp_path):
+  """The CLIs take every architecture on to its data, and the render
+  function picks JAX's route: the serving kernels where
+  fast_render.supported holds, NerfModel.forward (model.apply) otherwise;
+  render_camera then agrees with JAX's."""
   bindings = _UNSUPPORTED.get(case, [])
   jax_gin.add_search_path(str(REPO / 'configs'))
   jax_gin.parse_config_files_and_bindings(config_files=[GIN],
@@ -516,14 +531,59 @@ def test_guard_refuses_what_jax_renders_through_model_apply(case, tmp_path):
   assert jax_supported == (case == 'supported')
   missing = tmp_path / 'no_such_scene'
   argv = _argv(tmp_path / 'exp', missing, bindings + EVAL_BINDINGS)
-  if jax_supported:
+  for cli in (eval_cli, render_video):
     with pytest.raises(FileNotFoundError):  # it goes on to read the data
-      eval_cli.main(argv)
-  else:
-    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
-      eval_cli.main(argv)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
-      render_video.main(argv)
+      cli.main(argv)
+
+  jax_model, jax_params, model, params = torch_parity.model_pair(
+      use_warp_jacobian=False, use_weights=False, **_RENDER_MODELS[case])
+  fn = evaluation.make_render_fn(model, device='cpu')
+  assert fn.fast == jax_supported
+  cam = _distorted_camera()
+  want = jax_evaluation.render_camera(
+      jax_training.create_train_state(jax_params, warp_alpha=1.5,
+                                      time_alpha=0.4),
+      jax_camera.Camera(**cam.get_parameters()), _METADATA,
+      jax_evaluation.make_render_fn(jax_model, mesh_lib.create_mesh()),
+      chunk=16)
+  got = evaluation.render_camera(
+      evaluation.RenderState(params, warp_alpha=1.5, time_alpha=0.4), cam,
+      _METADATA, fn, chunk=16)
+  for key in ('rgb', 'depth', 'acc'):
+    np.testing.assert_allclose(got[key], want[key], atol=tfr.ATOL,
+                               rtol=tfr.RTOL, err_msg=key)
+
+
+def test_fast_off_renders_through_the_forward():
+  """fast='off' sends a model the serving path covers through
+  NerfModel.forward (float32), which agrees with the serving kernels
+  (bf16) at the render tolerance; a stratified model renders through it
+  too, each chunk drawing from fold_in(seed, chunk)."""
+  _, _, model, params = torch_parity.model_pair(
+      use_warp_jacobian=False, use_weights=False, use_camera_metadata=True)
+  cam = _distorted_camera()
+  state = evaluation.RenderState(params, warp_alpha=1.5)
+  auto = evaluation.make_render_fn(model, device='cpu')
+  off = evaluation.make_render_fn(model, device='cpu', fast='off')
+  assert auto.fast and not off.fast
+  want = evaluation.render_camera(state, cam, _METADATA, auto, chunk=16)
+  with mock.patch.object(evaluation.fast_render, 'render_rays',
+                         side_effect=AssertionError('serving path')):
+    got = evaluation.render_camera(state, cam, _METADATA, off, chunk=16)
+  for key in ('rgb', 'depth', 'acc'):
+    np.testing.assert_allclose(got[key], want[key], atol=tfr.ATOL,
+                               rtol=tfr.RTOL, err_msg=key)
+  model.use_stratified_sampling = True
+  stratified = evaluation.make_render_fn(model, device='cpu')
+  assert not stratified.fast and stratified.stratified
+  renders = [evaluation.render_camera(state, cam, _METADATA, stratified,
+                                      chunk=16, seed=seed)
+             for seed in (3, 3, 4)]
+  np.testing.assert_array_equal(renders[1]['rgb'], renders[0]['rgb'])
+  assert not np.array_equal(renders[2]['rgb'], renders[0]['rgb'])
+  assert np.isfinite(renders[0]['rgb']).all()
+  with pytest.raises(ValueError, match='fast'):
+    evaluation.make_render_fn(model, device='cpu', fast='on')
 
 
 def test_eval_cli_runs_as_a_module(experiment, tmp_path):

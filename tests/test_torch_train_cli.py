@@ -16,6 +16,7 @@ import os
 import pathlib
 import subprocess
 import sys
+from unittest import mock
 
 import jax
 from jax import random
@@ -233,7 +234,7 @@ def test_first_step_matches_jax(both):
                           'gradient')
 
 
-def _run_cli(base_folder, data_dir, max_steps):
+def _run_cli(base_folder, data_dir, max_steps, bindings=tuple(BINDINGS)):
   """`python -m nerfies_tpu_torch.train` in a subprocess, on the CPU.
 
   TensorFlow is kept out: TensorBoard's writer would import it when it is
@@ -241,9 +242,9 @@ def _run_cli(base_folder, data_dir, max_steps):
   """
   argv = ['--base_folder', str(base_folder), '--data_dir', str(data_dir),
           '--device', 'cpu', '--gin_configs', GIN]
-  for binding in BINDINGS + [f'TrainConfig.max_steps = {max_steps}',
-                             'TrainConfig.log_every = 2',
-                             'TrainConfig.histogram_every = 2']:
+  for binding in list(bindings) + [f'TrainConfig.max_steps = {max_steps}',
+                                   'TrainConfig.log_every = 2',
+                                   'TrainConfig.histogram_every = 2']:
     argv += ['--gin_bindings', binding]
   code = ('import runpy, sys; sys.modules["tensorflow"] = None; '
           f'sys.argv = ["train"] + {argv!r}; '
@@ -274,6 +275,48 @@ def test_cli_trains_saves_and_resumes(scene_dir, tmp_path):
   # Scalars and the embedding histograms at steps 2 and 4 (when
   # TensorBoard is installed; the CLI logs to the console otherwise).
   assert any((exp / 'summaries' / 'train').iterdir())
+
+
+def test_cli_trains_test_local_through_the_plain_route(scene_dir, tmp_path,
+                                                       monkeypatch):
+  """configs/test_local.gin without the use_fused_mlp binding (the verify
+  recipe's small bindings, stratified as the file says) trains through
+  NerfModel.forward, as JAX trains it through model.apply; the eval CLI
+  then evaluates its checkpoint once. With a trunk condition, which the
+  serving path does not cover, eval renders through the forward too, and
+  --fast_preview renders unculled, as in JAX (eval.py:352-360)."""
+  from nerfies_tpu_torch import eval as eval_cli
+  for cli in (train, eval_cli):
+    monkeypatch.setattr(cli, '_make_summary_writer', lambda _: None)
+  plain = [b for b in BINDINGS if 'use_fused_mlp' not in b
+           and 'use_stratified_sampling' not in b]
+  exp = tmp_path / 'exp'
+  with mock.patch.object(training.fused_train, 'model_forward',
+                         side_effect=AssertionError('fused route')):
+    argv = ['--base_folder', str(exp), '--data_dir', str(scene_dir),
+            '--device', 'cpu', '--gin_configs', GIN]
+    for binding in plain + ['TrainConfig.max_steps = 2',
+                            'ModelConfig.use_trunk_condition = True']:
+      argv += ['--gin_bindings', binding]
+    result = train.main(argv)
+  assert not result.setup.model.fused_route
+  assert result.setup.model.use_stratified_sampling
+  assert result.state.step == 2
+  for path, value in fused_mlp.flatten_tree(result.stats):
+    assert np.isfinite(value), path
+  assert 'elastic' in ' '.join('/'.join(p) for p, _ in
+                               fused_mlp.flatten_tree(result.stats))
+  with mock.patch.object(eval_cli.evaluation.fast_render, 'render_rays',
+                         side_effect=AssertionError('serving path')):
+    evaluated = eval_cli.main(argv + ['--fast_preview'] + [
+        a for b in ('EvalConfig.eval_once = True',
+                    'EvalConfig.num_val_eval = 1',
+                    'EvalConfig.num_train_eval = 1',
+                    'EvalConfig.num_test_eval = 1', 'EvalConfig.chunk = 100')
+        for a in ('--gin_bindings', b)])
+  assert set(evaluated.metrics[2]) >= {'val', 'train'}
+  assert not evaluated.bakes
+  assert np.isfinite(evaluated.metrics[2]['val']['psnr'])
 
 
 def test_cli_needs_a_card_unless_told_cpu(scene_dir, tmp_path):

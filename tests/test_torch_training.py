@@ -12,6 +12,7 @@ losses and Adam at 1e-5 and 1e-6.
 """
 
 import dataclasses
+from unittest import mock
 
 import jax
 from jax import random
@@ -28,11 +29,14 @@ from nerfies_tpu_torch import fused_train
 from nerfies_tpu_torch import interop
 from nerfies_tpu_torch import training
 from nerfies_tpu_torch.ops import fused_mlp
+from nerfies_tpu_torch.ops import fused_warp
 from nerfies_tpu_torch.ops import rigid
 from tests.test_fused_train import _batch
 from tests.test_fused_train import _build
 from tests.torch_parity import grad_check
+from tests.torch_parity import model_pair
 from tests.torch_parity import port_model
+from tests.torch_parity import ray_batch
 
 _WARP_ALPHA = 1.5
 _LOSS_TYPES = ['log_svals', 'svals', 'jtj', 'div', 'det', 'log_det', 'nr']
@@ -239,15 +243,124 @@ def test_bench_train_config_is_the_bench_workload():
       background_loss_weight=1.0)
 
 
-def test_median_without_dense_jacobian_is_not_ported():
-  model = port_model()
-  model.use_warp_jacobian = False
-  _, jparams = _build()
-  state = training.create_train_state(
-      interop.params_from_jax(jparams, device='cpu'))
+def _plain_step_pair(reduce_method, gathered, seed=0, **overrides):
+  """One step of JAX's train_step through model.apply and of the port's
+  plain route, from the same params, rays and background draws, every
+  loss on. The model computes dense Jacobians unless `gathered`.
+
+  The warp heads' random params are scaled by 0.1, so that the warp stays
+  mild and its Jacobians well-conditioned, as a trained field's: at full
+  scale a singular value near 1e-3 makes log_svals' float32 value depend
+  on summation order, in JAX as in the port.
+
+  Returns (JAX stats, JAX first Adam moment, port stats, port state).
+  """
+  dense = not gathered
+  jmodel, jparams, model, _ = model_pair(
+      seed=seed, use_warp_jacobian=dense, use_weights=True,
+      use_appearance_metadata=True, use_rgb_condition=True, **overrides)
+  assert not model.fused_route
+  jparams = jax.tree_util.tree_map_with_path(
+      lambda path, leaf: (0.1 * leaf if 'branches' in jax.tree_util.keystr(
+          path) else leaf), jparams)
+  params = interop.params_from_jax(jparams, device='cpu')
+  batch = ray_batch(12, seed=seed)
+  rng = np.random.RandomState(seed + 6)
+  batch['rgb'] = rng.uniform(size=(12, 3)).astype(np.float32)
+  batch['background_points'] = rng.normal(size=(32, 3)).astype(np.float32)
+  scalars = dict(learning_rate=1e-3, elastic_loss_weight=0.01,
+                 warp_reg_loss_weight=0.01, background_loss_weight=1.0)
+  switches = dict(use_elastic_loss=True, elastic_reduce_method=reduce_method,
+                  use_warp_reg_loss=True, use_background_loss=True)
+  key = random.PRNGKey(7)
+  jstate = jax_training.create_train_state(jparams, warp_alpha=_WARP_ALPHA,
+                                           time_alpha=0.4)
+  jnew, jstats, _ = jax_training.train_step(
+      jmodel, key, jstate, jax.tree.map(jnp.asarray, batch),
+      jax_training.ScalarParams(**scalars), **switches)
+  draws = _jax_background_draws(jmodel, random.split(key, 4)[3], 32)
   step = training.make_train_step(
-      model, configs.TrainConfig(batch_size=12, use_elastic_loss=True,
-                                 elastic_reduce_method='median'),
-      device='cpu')
-  with pytest.raises(NotImplementedError, match='_median_jacobian'):
-    step(None, state, _batch(), training.ScalarParams(learning_rate=1e-3))
+      model, configs.TrainConfig(batch_size=12, **switches), device='cpu')
+  state = training.create_train_state(params, warp_alpha=_WARP_ALPHA,
+                                      time_alpha=0.4)
+  new_state, stats = step(None, state, batch,
+                          training.ScalarParams(**scalars), draws)
+  return jstats, jnew.opt_state.mu, stats, new_state
+
+
+@pytest.mark.parametrize('case', ['weight', 'median_dense',
+                                  'median_gathered', 'median_gathered_time'])
+def test_plain_route_step_matches_jax(case):
+  """The step through NerfModel.forward against JAX's through
+  model.apply (use_fused_mlp False): stats at rtol 1e-4, atol 1e-6; each
+  gradient leaf at cosine >= 0.9999 and norm ratio within 1 +- 1e-3. The
+  gathered median linearizes the plain field at the median points
+  (JAX's _median_jacobian), reading metadata['time'] for the time
+  encoder."""
+  overrides = ({'warp_metadata_encoder_type': 'time'}
+               if case.endswith('time') else {})
+  jstats, jmu, stats, new_state = _plain_step_pair(
+      case.split('_')[0], 'gathered' in case, **overrides)
+  want = {'/'.join(k.key for k in path): float(v) for path, v in
+          jax.tree_util.tree_flatten_with_path(jstats)[0]}
+  got = {'/'.join(path): float(v)
+         for path, v in fused_mlp.flatten_tree(stats)}
+  assert set(got) == set(want)
+  for name, value in want.items():
+    np.testing.assert_allclose(got[name], value, rtol=1e-4, atol=1e-6,
+                               err_msg=name)
+  grad_check(new_state.opt_state.mu, jmu, 'gradient', cos_floor=0.9999,
+             ratio=(1 - 1e-3, 1 + 1e-3))
+
+
+def test_gathered_median_equals_the_dense_median():
+  """The elastic loss of the gathered median equals that of the dense
+  Jacobians' median column (tests/test_training.py:155-197)."""
+  dense = _plain_step_pair('median', gathered=False)[2]
+  gathered = _plain_step_pair('median', gathered=True)[2]
+  for key in ('loss/elastic', 'residual/elastic', 'loss/rgb'):
+    np.testing.assert_allclose(float(gathered['coarse'][key]),
+                               float(dense['coarse'][key]), rtol=1e-5,
+                               err_msg=key)
+
+
+def test_fused_route_with_the_plain_warp_matches_jax():
+  """use_fused_warp=False inside the fused route: the NeRF kernels' plain
+  versions and the plain warp field, against JAX's fused step with the
+  Flax warp, at tests/test_fused_train.py's limits."""
+  jmodel, jparams = _build(use_fused_warp=False)
+  model = port_model()
+  model.use_fused_warp = False
+  assert model.fused_route
+  batch = _batch()
+  batch['background_points'] = np.random.RandomState(6).normal(
+      size=(32, 3)).astype(np.float32)
+  scalars = dict(learning_rate=1e-3, elastic_loss_weight=0.01,
+                 background_loss_weight=1.0)
+  switches = dict(use_elastic_loss=True, elastic_reduce_method='weight',
+                  use_background_loss=True)
+  key = random.PRNGKey(7)
+  jstate = jax_training.create_train_state(jparams, warp_alpha=_WARP_ALPHA)
+  jnew, jstats, _ = jax_training.train_step(
+      jmodel, key, jstate, batch, jax_training.ScalarParams(**scalars),
+      **switches)
+  draws = _jax_background_draws(jmodel, random.split(key, 4)[3], 32)
+  step = training.make_train_step(
+      model, configs.TrainConfig(batch_size=12, **switches), device='cpu')
+  state = training.create_train_state(
+      interop.params_from_jax(jparams, device='cpu'), warp_alpha=_WARP_ALPHA)
+  with mock.patch.object(fused_warp, 'warp_mlp_train',
+                         side_effect=AssertionError('warp kernel called')):
+    new_state, stats = step(None, state, batch,
+                            training.ScalarParams(**scalars), draws)
+  want = {'/'.join(k.key for k in path): float(v) for path, v in
+          jax.tree_util.tree_flatten_with_path(jstats)[0]}
+  got = {'/'.join(path): float(v)
+         for path, v in fused_mlp.flatten_tree(stats)}
+  assert set(got) == set(want)
+  for name, value in want.items():
+    np.testing.assert_allclose(got[name], value, rtol=0.05, atol=5e-4,
+                               err_msg=name)
+  grad_check(new_state.opt_state.mu, jnew.opt_state.mu, 'gradient')
+
+
