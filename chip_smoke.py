@@ -116,6 +116,27 @@ non-zero exit at the first phase that fails:
            the culled path's warp at 262,144 and 655,360). A frame is
            profiled unculled and culled, and culled at 8 times the chunk:
            wall and device-busy ms, idle share, device ops, largest ops.
+  ddp      the CLIs under `python -m torch.distributed.run --standalone
+           --nproc_per_node=<torch.cuda.device_count()>` (NCCL, one process
+           per card, each on cuda:{LOCAL_RANK}; world size 1 on a machine
+           of one card), each rank running `chip_smoke.py --ddp_child`,
+           which writes its launch counts, numbers and loaded JAX modules
+           (none may be) to a report. The training CLI on the cli phase's
+           capture with configs/tpu_vrig_paper.gin for 3 steps, resumed to
+           5, held against the same runs in this process: at world size 1
+           params and stats bit-identical, at N > 1 stats at rtol 0.05,
+           atol 5e-4. configs/gpu_quarterhd_4gpu.gin (made for 4 devices,
+           the plain route) for 3 steps: step ms, rays/s, peak memory a
+           rank, the all-reduce's calls, bytes and ms a step. The eval CLI
+           on step 5's checkpoint, one val frame: at world size 1 equal bit
+           for bit to the frame rendered in this process, at N > 1 within
+           atol 0.02, rtol 0.05. Every kernel must launch in the children
+           (their counts are the kernels line's `ddp` launches).
+  profile  `nerfies_tpu_torch.profiling step` on the bench workload (fused
+           route, 5 unprofiled steps, one profiled): device ms by op for
+           every op, the idle share against the unprofiled median; its
+           trace summarised by `profiling trace`; then `profiling
+           dispatch`.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -124,10 +145,14 @@ Usage: python3 chip_smoke.py [--seed 0]
 """
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
+import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -145,7 +170,9 @@ from nerfies_tpu_torch import fast_render
 from nerfies_tpu_torch import image_utils
 from nerfies_tpu_torch import lpips
 from nerfies_tpu_torch import occupancy
+from nerfies_tpu_torch import profiling
 from nerfies_tpu_torch import render_video
+from nerfies_tpu_torch import resolve_device
 from nerfies_tpu_torch import schedules
 from nerfies_tpu_torch import train as train_cli
 from nerfies_tpu_torch import training
@@ -158,6 +185,7 @@ from nerfies_tpu_torch.ops import encoding
 from nerfies_tpu_torch.ops import fused_mlp
 from nerfies_tpu_torch.ops import fused_warp
 from nerfies_tpu_torch.ops import ssim
+from nerfies_tpu_torch.parallel import mesh
 
 KERNEL_ATOL = KERNEL_RTOL = 0.05
 RENDER_ATOL, RENDER_RTOL = 0.02, 0.05
@@ -229,6 +257,41 @@ PLAIN_WARP_STEP_LAUNCHES = {'nerf_mlp_forward': 2, 'nerf_mlp_backward': 2,
 CLI_PLAIN_FIRST, CLI_PLAIN_LAST, CLI_MEDIAN_STEPS = 5, 7, 2
 # Device kernels of a matmul (cuBLAS's names), for the profile's split.
 MATMUL_MARKS = ('gemm', 'xmma', 'cutlass', 'cublas')
+# Each kernel's wrapper: its source and the TPU kernel it replaces.
+KERNEL_SOURCES = {
+    'nerf_mlp_forward': ('nerfies_tpu_torch/csrc/fused_mlp.cu',
+                         'nerfies_tpu/ops/fused_mlp.py:78'),
+    'warp_trunk_forward': ('nerfies_tpu_torch/csrc/fused_mlp.cu',
+                           'nerfies_tpu/ops/fused_mlp.py:645'),
+    'nerf_mlp_backward': ('nerfies_tpu_torch/csrc/fused_mlp_bwd.cu',
+                          'nerfies_tpu/ops/fused_mlp.py:432'),
+    'warp_mlp_forward': ('nerfies_tpu_torch/csrc/fused_warp.cu',
+                         'nerfies_tpu/ops/fused_warp.py:147'),
+    'warp_mlp_backward': ('nerfies_tpu_torch/csrc/fused_warp_bwd.cu',
+                          'nerfies_tpu/ops/fused_warp.py:207'),
+}
+# The ddp phase: the CLIs under torchrun, one process per card of the
+# machine, NCCL. The training CLI on CLI_GIN for DDP_FIRST_STEPS steps,
+# resumed to DDP_LAST_STEP, against the same runs without torchrun;
+# DDP_PLAIN_GIN (made for 4 devices, the plain route) for DDP_PLAIN_STEPS
+# steps; the eval CLI on one val frame.
+DDP_FIRST_STEPS, DDP_LAST_STEP = 3, 5
+DDP_PLAIN_GIN = 'configs/gpu_quarterhd_4gpu.gin'
+DDP_PLAIN_STEPS = 3
+DDP_EVAL_BINDINGS = ('ExperimentConfig.image_scale = 1',
+                     'EvalConfig.eval_once = True',
+                     'EvalConfig.num_val_eval = 1',
+                     'EvalConfig.num_train_eval = 0',
+                     'EvalConfig.num_test_eval = 0',
+                     f'EvalConfig.chunk = {CHUNK}',
+                     'EvalConfig.save_output = False')
+DDP_EVAL_ATOL, DDP_EVAL_RTOL = 0.02, 0.05
+DDP_TIMEOUT_S = 300
+# The profile phase: nerfies_tpu_torch.profiling step on the bench
+# workload (fused route), PROFILE_STEPS unprofiled steps, then dispatch.
+PROFILE_STEPS = 5
+# Top-level modules that a ddp child must not load.
+FORBIDDEN_MODULES = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nerfies_tpu')
 
 # Dense peaks of the card at its full power limit, from NVIDIA's data
 # sheets (SXM parts): bf16 tensor FLOP/s and device-memory bytes/s.
@@ -964,25 +1027,6 @@ def phase_parity(model, state, rays):
       check(ok, f'{level}/{key} differs from the CPU plain render')
 
 
-def _train_batch(batch_size, background_points, seed, id_counts=(16, 2, 16)):
-  """bench.py's fake_batch: unit directions, random colours and ids (below
-  id_counts: warp, camera, appearance)."""
-  rng = np.random.RandomState(seed)
-  directions = rng.randn(batch_size, 3).astype(np.float32)
-  directions /= np.linalg.norm(directions, axis=-1, keepdims=True)
-  ids = lambda high: rng.randint(0, high, (batch_size, 1))
-  warp, camera, appearance = id_counts
-  return {
-      'origins': np.zeros((batch_size, 3), np.float32),
-      'directions': directions,
-      'rgb': rng.uniform(size=(batch_size, 3)).astype(np.float32),
-      'metadata': {'warp': ids(warp), 'camera': ids(camera),
-                   'appearance': ids(appearance)},
-      'background_points': rng.randn(background_points, 3).astype(
-          np.float32),
-  }
-
-
 def _train_model(config, seed, device):
   return nerf.construct_nerf(
       config, **configs.BENCH_RENDER_IDS,
@@ -992,62 +1036,15 @@ def _train_model(config, seed, device):
 
 TRAIN_KERNELS = ('nerf_mlp_forward', 'nerf_mlp_backward', 'warp_mlp_forward',
                  'warp_mlp_backward')
-OUR_KERNEL_NAMES = ('nerf_mlp_kernel', 'warp_trunk_kernel',
-                    'nerf_bwd_rows_kernel', 'warp_fwd_kernel',
-                    'warp_bwd_rows_kernel', 'dw_partial_kernel',
-                    'dw_reduce_kernel')
-
-
-def _profile(fn, top=0):
-  """Device time of one call of `fn`, from torch.profiler.
-
-  Returns (wall ms, device busy ms, {kernel of the port: ms}, device ops
-  run, [(op, ms)] of the `top` largest device ops, [(aten op, ms)] of the
-  `top` ops whose own launches took the most device time).
-  """
-  from torch.profiler import ProfilerActivity, profile
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    start = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - start) * 1e3
-  ours, total, count, ops, aten = {}, 0.0, 0, [], []
-  for event in prof.key_averages():
-    us = getattr(event, 'self_device_time_total', None)
-    if us is None:
-      us = event.self_cuda_time_total
-    if event.device_type != torch.autograd.DeviceType.CUDA:
-      if us > 0:
-        aten.append((event.key, us / 1e3))
-      continue
-    total += us
-    count += event.count
-    ops.append((event.key, us / 1e3))
-    for name in OUR_KERNEL_NAMES:
-      if name in event.key:
-        ours[name] = ours.get(name, 0.0) + us
-  ops.sort(key=lambda op: -op[1])
-  aten.sort(key=lambda op: -op[1])
-  return (wall_ms, total / 1e3, {k: v / 1e3 for k, v in ours.items()}, count,
-          ops[:top], aten[:top])
-
-
-def _profile_step(step, state, batch, scalars, generator):
-  """Device time of one step by kernel, from torch.profiler."""
-  wall_ms, busy_ms, ours, *_ = _profile(
-      lambda: step(generator, state, batch, scalars))
-  return wall_ms, busy_ms, ours
-
-
 def phase_train(seed, device=torch.device('cuda', 0)):
   config, train_config = configs.bench_train_config()
   model, params = _train_model(config, seed, device)
   state = training.create_train_state(params,
                                       warp_alpha=configs.BENCH_WARP_ALPHA)
   step = training.make_train_step(model, train_config, device)
-  batch = _train_batch(train_config.batch_size,
-                       train_config.background_points_batch_size, seed)
+  batch = profiling.fake_batch(train_config.batch_size,
+                               train_config.background_points_batch_size,
+                               seed)
   scalars = training.ScalarParams(**configs.BENCH_TRAIN_SCALARS)
   generator = torch.Generator(device).manual_seed(seed)
 
@@ -1088,12 +1085,13 @@ def phase_train(seed, device=torch.device('cuda', 0)):
         f'{step_ms:.2f} ms, {train_config.batch_size / step_ms * 1e3:.1f} '
         f'rays/s; max_memory_allocated {peak_gb:.2f} GiB')
   try:
-    wall_ms, busy_ms, ours = _profile_step(step, new_state, batch, scalars,
-                                           generator)
-    print(f'  profiled step: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device '
-          f'busy ({1 - busy_ms / wall_ms:.3f} idle share); kernels of the '
-          f'port {sum(ours.values()):.2f} ms: '
-          + ', '.join(f'{k} {v:.2f}' for k, v in ours.items()))
+    prof = profiling.profile(
+        lambda: step(generator, new_state, batch, scalars), device)
+    print(f'  profiled step: {prof.wall_ms:.2f} ms wall, {prof.busy_ms:.2f} '
+          f'ms device busy ({profiling.idle_share(prof.busy_ms, step_ms):.3f}'
+          f' idle share against the median step); kernels of the port '
+          f'{sum(prof.ours.values()):.2f} ms: '
+          + ', '.join(f'{k} {v:.2f}' for k, v in prof.ours.items()))
   except Exception as e:  # the breakdown is a reading, not a check
     print(f'  profiled step: not measured ({type(e).__name__}: {e})')
   return counts, dict(step_ms=step_ms, peak_gb=peak_gb)
@@ -1123,7 +1121,8 @@ def phase_train_parity(seed, device=torch.device('cuda', 0)):
   config, train_config = configs.bench_train_config()
   config = dataclasses.replace(config, use_stratified_sampling=False)
   model, params = _train_model(config, seed, device)
-  batch = _train_batch(PARITY_TRAIN_RAYS, PARITY_BACKGROUND_POINTS, seed + 1)
+  batch = profiling.fake_batch(PARITY_TRAIN_RAYS, PARITY_BACKGROUND_POINTS,
+                               seed + 1)
   rng = np.random.RandomState(seed + 2)
   ids = np.asarray(model.warp_ids)[rng.randint(
       0, len(model.warp_ids), (PARITY_BACKGROUND_POINTS, 1))]
@@ -1254,8 +1253,9 @@ def _plain_warp_step(seed, device):
       dataclasses.replace(config, use_fused_warp=False), seed, device)
   check(model.fused_route and not model.use_fused_warp, 'route')
   step = training.make_train_step(model, train_config, device)
-  batch = _train_batch(train_config.batch_size,
-                       train_config.background_points_batch_size, seed)
+  batch = profiling.fake_batch(train_config.batch_size,
+                               train_config.background_points_batch_size,
+                               seed)
   scalars = training.ScalarParams(**configs.BENCH_TRAIN_SCALARS)
   generator = torch.Generator(device).manual_seed(seed)
   state = training.create_train_state(params,
@@ -1335,21 +1335,23 @@ def phase_cli_plain(train_step_ms, work, device=torch.device('cuda', 0)):
   step = training.make_train_step(model, second.setup.train_config, device)
   id_counts = tuple(max(ids, default=0) + 1 for ids in (
       model.warp_ids, model.camera_ids, model.appearance_ids))
-  fake = _train_batch(batch, CLI_POINTS, 0, id_counts)
+  fake = profiling.fake_batch(batch, CLI_POINTS, 0, id_counts)
   scalars = second.setup.scalar_params
   try:
-    wall_ms, busy_ms, _, count, ops, aten = _profile(
+    prof = profiling.profile(
         lambda: step(training.step_generator(0, 1, device), second.state,
-                     fake, scalars), top=1 << 30)
+                     fake, scalars), device)
+    ops = prof.top_kernels()
     matmul_ms, rest_ms = _matmul_split(ops)
-    print(f'  [{card}] profiled plain step: {wall_ms:.2f} ms wall, '
-          f'{busy_ms:.2f} ms device busy ({1 - busy_ms / wall_ms:.3f} idle '
-          f'share), {count} device ops; matmul kernels {matmul_ms:.2f} ms, '
-          f'the rest {rest_ms:.2f} ms; largest: ' + ', '.join(
-              f'{name[:60]} {ms:.2f}' for name, ms in ops[:6]))
+    print(f'  [{card}] profiled plain step: {prof.wall_ms:.2f} ms wall, '
+          f'{prof.busy_ms:.2f} ms device busy '
+          f'({profiling.idle_share(prof.busy_ms, step_ms):.3f} idle share '
+          f'against the median step), {prof.device_ops} device ops; matmul '
+          f'kernels {matmul_ms:.2f} ms, the rest {rest_ms:.2f} ms; largest: '
+          + ', '.join(f'{name[:60]} {ms:.2f}' for name, ms in ops[:6]))
     print(f'  [{card}] profiled plain step by op (device ms of its own '
           'launches): ' + ', '.join(f'{name} {ms:.2f}'
-                                    for name, ms in aten[:12]))
+                                    for name, ms, _ in prof.top_ops(12)))
   except Exception as e:  # the breakdown is a reading, not a check
     print(f'  profiled plain step: not measured ({type(e).__name__}: {e})')
 
@@ -1669,15 +1671,16 @@ def phase_eval(work, device_name, device=torch.device('cuda', 0)):
       (f'culled chunk {PROFILE_BIG_CHUNK}', fast_state, culled_fn,
        PROFILE_BIG_CHUNK)):
     try:
-      wall_ms, busy_ms, ours, count, top, _ = _profile(
+      prof = profiling.profile(
           lambda: evaluation.render_camera(frame_state, camera,
                                            item['metadata'], fn, chunk=chunk),
-          top=6)
-      print(f'  [{card}] profiled {run} frame: {wall_ms:.2f} ms wall, '
-            f'{busy_ms:.2f} ms device busy ({1 - busy_ms / wall_ms:.3f} idle '
-            f'share), {count} device ops; kernels of the port '
-            f'{sum(ours.values()):.2f} ms; largest: ' + ', '.join(
-                f'{name[:60]} {ms:.2f}' for name, ms in top))
+          device)
+      print(f'  [{card}] profiled {run} frame: {prof.wall_ms:.2f} ms wall, '
+            f'{prof.busy_ms:.2f} ms device busy '
+            f'({1 - prof.busy_ms / prof.wall_ms:.3f} idle share of the '
+            f'profiled frame), {prof.device_ops} device ops; kernels of the '
+            f'port {sum(prof.ours.values()):.2f} ms; largest: ' + ', '.join(
+                f'{name[:60]} {ms:.2f}' for name, ms in prof.top_kernels(6)))
     except Exception as e:  # the breakdown is a reading, not a check
       print(f'  profiled {run} frame: not measured ({type(e).__name__}: {e})')
 
@@ -1698,6 +1701,297 @@ def phase_eval(work, device_name, device=torch.device('cuda', 0)):
   return counts, cases
 
 
+def _forbidden_loaded():
+  return sorted({name.split('.')[0] for name in sys.modules}
+                & set(FORBIDDEN_MODULES))
+
+
+@contextlib.contextmanager
+def _kept_frames():
+  """Keeps the rgb, depth and acc of each evaluation.render_camera call
+  in the list it yields."""
+  render_camera, frames = evaluation.render_camera, []
+
+  def keep(*args, **kwargs):
+    maps = render_camera(*args, **kwargs)
+    frames.append({k: maps[k] for k in ('rgb', 'depth', 'acc')})
+    return maps
+
+  evaluation.render_camera = keep
+  try:
+    yield frames
+  finally:
+    evaluation.render_camera = render_camera
+
+
+def ddp_child(argv):
+  """One rank of a ddp run (started by torchrun): `--ddp_child MODE REPORT
+  -- CLI ARGS`. MODE 'train' runs nerfies_tpu_torch.train.main, 'eval'
+  nerfies_tpu_torch.eval.main, with the launch counts set to 0 just
+  before; REPORT.rank<r>.json gets the counts, the run's numbers and the
+  JAX modules loaded (none may be); 'eval' also keeps rank 0's frames
+  (rgb, depth, acc) in REPORT.frames.npz."""
+  mode, report = argv[0], argv[1]
+  cli_argv = argv[argv.index('--') + 1:]
+  # Read before the run: a TensorBoard writer may import TensorFlow, and
+  # with it JAX where both are installed; the port's modules are all
+  # imported by now.
+  forbidden = _forbidden_loaded()
+  fused_mlp.reset_launch_counts()
+  frames = []
+  if mode == 'train':
+    result = train_cli.main(cli_argv)
+    device = result.setup.device
+    out = {'stats': {k: float(v) for k, v in _flat_tree(result.stats)},
+           'train_step_s': result.time_tracker.values('train_step'),
+           'collectives': result.collectives,
+           'init_step': result.setup.init_step,
+           'batch_size': result.setup.train_config.batch_size,
+           'fused_route': result.setup.model.fused_route}
+  else:
+    with _kept_frames() as frames:
+      result = eval_cli.main(cli_argv)
+    device = resolve_device(cli_argv[cli_argv.index('--device') + 1]
+                            if '--device' in cli_argv else 'cuda')
+    out = {'frames': len(frames),
+           'render_time': [stats['render_time']
+                           for _, _, _, stats in result.frames]}
+  out.update(rank=mesh.rank(),
+             world_size=mesh.world_size(), device=str(device),
+             launches=fused_mlp.launch_counts(),
+             peak_gb=(torch.cuda.max_memory_allocated(device) / 2**30
+                      if device.type == 'cuda' else 0.0),
+             forbidden_modules=forbidden)
+  if frames and mesh.is_main():
+    np.savez(f'{report}.frames.npz', **{
+        f'{i}_{k}': v for i, frame in enumerate(frames)
+        for k, v in frame.items()})
+  with open(f'{report}.rank{mesh.rank()}.json', 'w') as f:
+    json.dump(out, f)
+  mesh.shutdown()
+
+
+def torchrun(work, tag, mode, cli_argv, world, device_type='cuda'):
+  """`python -m torch.distributed.run --standalone --nproc_per_node=world
+  chip_smoke.py --ddp_child mode ...` from the repo's root; returns each
+  rank's report and the seconds the command took. Fails with the log's
+  end if it fails; stops the whole process group if it overruns."""
+  repo = pathlib.Path(__file__).resolve().parent
+  report = work / f'ddp_{tag}'
+  cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         f'--nproc_per_node={world}', str(repo / 'chip_smoke.py'),
+         '--ddp_child', mode, str(report), '--', *cli_argv]
+  log_path = work / f'ddp_{tag}.log'
+  start = time.perf_counter()
+  with open(log_path, 'w') as log:
+    proc = subprocess.Popen(cmd, cwd=repo, stdout=log,
+                            stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+      proc.wait(timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+      os.killpg(proc.pid, signal.SIGKILL)
+      proc.wait()
+  seconds = time.perf_counter() - start
+  tail = log_path.read_text()[-3000:]
+  check(proc.returncode == 0,
+        f'{tag}: torchrun exited {proc.returncode}:\n{tail}')
+  reports = []
+  for r in range(world):
+    with open(f'{report}.rank{r}.json') as f:
+      reports.append(json.load(f))
+  for rep in reports:
+    want = f'cuda:{rep["rank"]}' if device_type == 'cuda' else device_type
+    check(rep['world_size'] == world and rep['device'] == want,
+          f'{tag}: rank {rep["rank"]} of {rep["world_size"]} ran on '
+          f'{rep["device"]}')
+    check(not rep['forbidden_modules'],
+          f'{tag}: a ddp child loaded {rep["forbidden_modules"]}')
+  return reports, seconds
+
+
+def _add_counts(total, counts):
+  for name, count in counts.items():
+    total[name] = total.get(name, 0) + count
+
+
+def phase_ddp(work, device_type='cuda'):
+  """The training and eval CLIs under torchrun over every card, held
+  against the same runs in this process, and the 4-device config.
+
+  `device_type` 'cpu' rehearses the phase with gloo ranks on the CPU
+  (each CLI's `--device cpu`); on the card it is 'cuda', so that each
+  rank takes its card, cuda:{LOCAL_RANK}."""
+  card = card_label()
+  world = torch.cuda.device_count()
+  print(f'  world size {world} (torch.cuda.device_count()), '
+        f'{"NCCL" if device_type == "cuda" else "gloo"}')
+  scene = work / 'scene'
+  bindings = (f'TrainConfig.save_every = {DDP_FIRST_STEPS}',)
+  device_argv = [] if device_type == 'cuda' else ['--device', device_type]
+
+  def train_argv(exp, gin_file, max_steps, *extra):
+    argv = ['--base_folder', str(exp), '--data_dir', str(scene),
+            '--gin_configs', gin_file, *device_argv]
+    for binding in ('ExperimentConfig.image_scale = 1',
+                    f'TrainConfig.max_steps = {max_steps}',
+                    'TrainConfig.print_every = 1',
+                    'TrainConfig.log_every = 1000000',
+                    'TrainConfig.histogram_every = 1000000') + extra:
+      argv += ['--gin_bindings', binding]
+    return argv
+
+  # The reference: the same runs without torchrun, in this process.
+  ref_exp = work / 'exp_ddp_ref'
+  for steps in (DDP_FIRST_STEPS, DDP_LAST_STEP):
+    ref_stats = train_cli.main(train_argv(ref_exp, CLI_GIN, steps,
+                                          *bindings)).stats
+  eval_argv = ['--base_folder', str(ref_exp), '--data_dir', str(scene),
+               '--gin_configs', CLI_GIN, *device_argv]
+  for binding in DDP_EVAL_BINDINGS:
+    eval_argv += ['--gin_bindings', binding]
+  with _kept_frames() as ref_frames:
+    eval_cli.main(eval_argv)
+  # Nothing of this process may hold the card's memory for the children.
+  gc.collect()
+  if device_type == 'cuda':
+    torch.cuda.empty_cache()
+
+  counts = {}
+  exp = work / 'exp_ddp'
+  runs = []
+  for steps in (DDP_FIRST_STEPS, DDP_LAST_STEP):
+    reports, seconds = torchrun(
+        work, f'train{steps}', 'train',
+        train_argv(exp, CLI_GIN, steps, *bindings), world, device_type)
+    runs.append(reports)
+    for rep in reports:
+      _add_counts(counts, rep['launches'])
+      check(rep['fused_route'], f'{CLI_GIN} took the plain route')
+    print(f'  torchrun train to step {steps}: {seconds:.1f} s; rank 0 '
+          f'from step {reports[0]["init_step"]}, train_step '
+          f'{[round(v * 1e3, 2) for v in reports[0]["train_step_s"]]} ms; '
+          f'launches per rank {[rep["launches"] for rep in reports]}; peak '
+          f'{[round(rep["peak_gb"], 2) for rep in reports]} GiB')
+  check(runs[1][0]['init_step'] == DDP_FIRST_STEPS + 1,
+        f'the resumed ddp run starts at {runs[1][0]["init_step"]}')
+  got = torch.load(exp / 'checkpoints' / str(DDP_LAST_STEP) / 'state.pt',
+                   weights_only=True)
+  want = torch.load(ref_exp / 'checkpoints' / str(DDP_LAST_STEP) /
+                    'state.pt', weights_only=True)
+  got_params, want_params = (dict(_flat_tree(got['params'])),
+                             dict(_flat_tree(want['params'])))
+  check(got_params.keys() == want_params.keys(), 'ddp params differ in names')
+  err = max(float((got_params[k] - want_params[k]).abs().max())
+            for k in want_params)
+  if world == 1:
+    same = all(torch.equal(got_params[k], want_params[k])
+               for k in want_params)
+    print(f'  params at step {DDP_LAST_STEP} under torchrun against without: '
+          f'max_abs_err {err:.3g}, bit-identical {same}')
+    check(same, 'world size 1 under torchrun trains other params')
+  else:
+    print(f'  params at step {DDP_LAST_STEP}: max_abs_err {err:.3g} against '
+          'one process')
+  for key, value in _flat_tree(ref_stats):
+    other = runs[1][0]['stats'][key]
+    ok = np.isclose(other, value, rtol=STATS_RTOL, atol=STATS_ATOL)
+    check(ok and (world > 1 or other == value),
+          f'ddp stat {key}: {other} against {value} in one process')
+  print('  the last step\'s stats equal the run without torchrun'
+        + (' bit for bit' if world == 1 else
+           f' within rtol {STATS_RTOL}, atol {STATS_ATOL}'))
+
+  # The config made for four devices, on the plain route.
+  reports, seconds = torchrun(
+      work, 'plain', 'train',
+      train_argv(work / 'exp_ddp_plain', DDP_PLAIN_GIN, DDP_PLAIN_STEPS,
+                 f'TrainConfig.save_every = {DDP_PLAIN_STEPS}'), world,
+      device_type)
+  for rep in reports:
+    _add_counts(counts, rep['launches'])
+    check(not rep['fused_route'], f'{DDP_PLAIN_GIN} took the fused route')
+    check(not any(rep['launches'].values()),
+          f'the plain route launched {rep["launches"]}')
+  main = reports[0]
+  step_ms = float(np.median(main['train_step_s'])) * 1e3
+  coll = main['collectives']
+  calls = max(coll.get('calls', 0), 1)
+  print(f'  [{card}] {DDP_PLAIN_GIN} on {world} card(s), batch '
+        f'{main["batch_size"]}: train_step median {step_ms:.2f} ms '
+        f'({[round(v * 1e3, 2) for v in main["train_step_s"]]}), '
+        f'{main["batch_size"] / step_ms * 1e3:.1f} rays/s; peak '
+        f'{[round(rep["peak_gb"], 2) for rep in reports]} GiB a rank; '
+        f'all-reduce {coll.get("calls", 0)} calls, '
+        f'{coll.get("bytes", 0) // calls} bytes and '
+        f'{coll.get("ms", 0.0) / calls:.3f} ms a step'
+        + (' (world size 1: nothing reduced)' if world == 1 else '')
+        + f'; command {seconds:.1f} s')
+
+  # The eval CLI under torchrun on step DDP_LAST_STEP's checkpoint.
+  eval_argv[1] = str(exp)
+  reports, seconds = torchrun(work, 'eval', 'eval', eval_argv, world,
+                              device_type)
+  for rep in reports:
+    _add_counts(counts, rep['launches'])
+  frames = np.load(work / 'ddp_eval.frames.npz')
+  check(reports[0]['frames'] == len(ref_frames) == 1,
+        f'eval frames: {reports[0]["frames"]} under torchrun, '
+        f'{len(ref_frames)} without')
+  for key in ('rgb', 'depth', 'acc'):
+    a, b = frames[f'0_{key}'], ref_frames[0][key]
+    err = float(np.abs(a - b).max())
+    ok = (np.array_equal(a, b) if world == 1 else
+          np.allclose(a, b, atol=DDP_EVAL_ATOL, rtol=DDP_EVAL_RTOL))
+    print(f'  eval frame {key} under torchrun against without: max_abs_err '
+          f'{err:.3g}, ' + ('bit-identical' if world == 1 else
+                            f'within atol {DDP_EVAL_ATOL} rtol '
+                            f'{DDP_EVAL_RTOL}') + f': {ok}')
+    check(ok, f'ddp eval frame {key} differs')
+  print(f'  [{card}] torchrun eval: render_time '
+        f'{[round(t * 1e3, 1) for t in reports[0]["render_time"]]} ms; '
+        f'command {seconds:.1f} s')
+  print(f'  launches in the ddp children, all ranks: {counts}')
+  for name in KERNEL_SOURCES:
+    check(counts.get(name, 0) > 0, f'{name}: no launch on the ddp path')
+  return counts
+
+
+def phase_profile(device):
+  """nerfies_tpu_torch.profiling step on the bench workload and dispatch:
+  device ms by op, the idle share against the unprofiled median."""
+  card = card_label()
+  print(f'  [{card}]')
+  trace_dir = tempfile.mkdtemp(prefix='chip_smoke_trace_')
+  try:
+    result = profiling.main(['step', '--steps', str(PROFILE_STEPS),
+                             '--trace_dir', trace_dir])
+    prof = result['profile']
+    for name in ('nerf_mlp_kernel', 'nerf_bwd_rows_kernel',
+                 'warp_fwd_kernel', 'warp_bwd_rows_kernel',
+                 'dw_partial_kernel'):
+      check(prof.ours.get(name, 0.0) > 0,
+            f'the profiled step shows no {name}')
+    plain = sum(ms for name, ms, _ in prof.top_ops()
+                if name not in profiling.OUR_KERNEL_NAMES)
+    print(f'  [{card}] step median {result["median_ms"]:.2f} ms, device busy '
+          f'{prof.busy_ms:.2f} ms, idle share {result["idle_share"]:.3f} '
+          f'(against the profiled wall {prof.wall_ms:.2f} ms: '
+          f'{1 - prof.busy_ms / prof.wall_ms:.3f}); kernels of the port '
+          f'{sum(prof.ours.values()):.2f} ms, other ops {plain:.2f} ms')
+    summary = profiling.main(['trace', os.path.join(trace_dir,
+                                                    'step_rank0.json'),
+                              '--top', '8'])
+    check(abs(summary['device_ms'] - prof.busy_ms) <= 0.01 * prof.busy_ms,
+          f'the trace holds {summary["device_ms"]} device ms, the profile '
+          f'{prof.busy_ms}')
+  finally:
+    shutil.rmtree(trace_dir, ignore_errors=True)
+  profiling.main(['dispatch'])
+  del device
+  return result
+
+
 def _tree_to(tree, device):
   return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
           for k, v in tree.items()}
@@ -1712,6 +2006,10 @@ def run_phase(name, fn, *args):
 
 
 def main(argv=None):
+  argv = sys.argv[1:] if argv is None else argv
+  if argv[:1] == ['--ddp_child']:
+    ddp_child(argv[1:])
+    return 0
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--seed', type=int, default=0)
   args = parser.parse_args(argv)
@@ -1748,32 +2046,23 @@ def main(argv=None):
                                  train_numbers['step_ms'], work)
     eval_counts, eval_cases = run_phase('eval', phase_eval, work,
                                         device_name)
+    ddp_counts = run_phase('ddp', phase_ddp, work)
+    run_phase('profile', phase_profile, device)
   except Exception as e:  # report the failing phase, then fail the run
     print(f'FAILED: {type(e).__name__}: {e}', file=sys.stderr, flush=True)
     raise
   finally:
     shutil.rmtree(work, ignore_errors=True)
-  sources = {
-      'nerf_mlp_forward': ('nerfies_tpu_torch/csrc/fused_mlp.cu',
-                           'nerfies_tpu/ops/fused_mlp.py:78'),
-      'warp_trunk_forward': ('nerfies_tpu_torch/csrc/fused_mlp.cu',
-                             'nerfies_tpu/ops/fused_mlp.py:645'),
-      'nerf_mlp_backward': ('nerfies_tpu_torch/csrc/fused_mlp_bwd.cu',
-                            'nerfies_tpu/ops/fused_mlp.py:432'),
-      'warp_mlp_forward': ('nerfies_tpu_torch/csrc/fused_warp.cu',
-                           'nerfies_tpu/ops/fused_warp.py:147'),
-      'warp_mlp_backward': ('nerfies_tpu_torch/csrc/fused_warp_bwd.cu',
-                            'nerfies_tpu/ops/fused_warp.py:207'),
-  }
   lines = []
-  for name, (source, replaces) in sources.items():
+  for name, (source, replaces) in KERNEL_SOURCES.items():
     k = kernels[name]
     by_path = {'serve': serve_counts.get(name, 0),
                'train': train_counts.get(name, 0),
                'model': model_counts.get(name, 0),
                'cli': cli_counts.get(name, 0),
                'cli_plain': cli_plain_counts.get(name, 0),
-               'eval': eval_counts.get(name, 0)}
+               'eval': eval_counts.get(name, 0),
+               'ddp': ddp_counts.get(name, 0)}
     for case in eval_cases.get(name, []):
       k['max_abs_err'] = max(k['max_abs_err'], case['max_abs_err'])
     lines.append({

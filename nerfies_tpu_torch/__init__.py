@@ -32,15 +32,26 @@ entry point picks its route by JAX's rule, never because a kernel failed.
 
 Entry points take `device=` (the CLI `--device`) and default to 'cuda'.
 Without a card they raise unless the caller passes device='cpu'; they
-never move to the CPU on their own.
+never move to the CPU on their own. Under `torchrun` the CLIs train,
+evaluate and render data-parallel over the machine's cards, one process
+per card (`parallel/mesh.py`).
 """
+
+import os
 
 import torch
 
 
 def resolve_device(device='cuda') -> torch.device:
-  """The torch.device an entry point runs on; raises if CUDA is missing."""
+  """The torch.device an entry point runs on; raises if CUDA is missing.
+
+  Under `torchrun` (LOCAL_RANK set), 'cuda' is this process's card,
+  cuda:{LOCAL_RANK}.
+  """
   device = torch.device(device)
+  if (device.type == 'cuda' and device.index is None
+      and 'LOCAL_RANK' in os.environ):
+    device = torch.device('cuda', int(os.environ['LOCAL_RANK']))
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError(
         'nerfies_tpu_torch runs on a CUDA card by default and none is '

@@ -9,6 +9,10 @@ the JAX state's names: `step`, `params`, `opt_state` (`count`, `mu`,
 
 The port cannot read an orbax checkpoint of the JAX package: restoring
 from a directory whose newest step the port did not write raises.
+
+Under a data-parallel run (parallel/mesh.py) a save is collective, as
+orbax's is: rank 0 writes, then every rank passes a barrier; every rank
+restores, onto its own device.
 """
 
 import os
@@ -20,6 +24,7 @@ import torch
 
 from nerfies_tpu_torch import training
 from nerfies_tpu_torch.ops import fused_mlp
+from nerfies_tpu_torch.parallel import mesh
 
 STATE_FILE = 'state.pt'
 FORMAT = 'nerfies_tpu_torch.TrainState'
@@ -41,11 +46,21 @@ def save_checkpoint(ckpt_dir, state: training.TrainState,
                     step: Optional[int] = None, keep: int = 2) -> str:
   """Saves `state` at `step` (defaults to state.step), keeping `keep` newest.
 
+  Collective under a process group: rank 0 writes, every rank waits.
+
   Returns:
     The checkpoint's directory.
   """
   ckpt_dir = Path(ckpt_dir)
   step = int(state.step if step is None else step)
+  if mesh.is_main():
+    _write(ckpt_dir, state, step, keep)
+  mesh.barrier()
+  return str(ckpt_dir / str(step))
+
+
+def _write(ckpt_dir: Path, state: training.TrainState, step: int,
+           keep: int) -> None:
   ckpt_dir.mkdir(parents=True, exist_ok=True)
   payload = {
       'format': FORMAT,
@@ -67,7 +82,6 @@ def save_checkpoint(ckpt_dir, state: training.TrainState,
   os.replace(tmp, final)
   for _, old in _step_dirs(ckpt_dir)[:-keep]:
     shutil.rmtree(old)
-  return str(final)
 
 
 def latest_checkpoint_step(ckpt_dir) -> Optional[int]:

@@ -32,6 +32,7 @@ import numpy as np
 
 from nerfies_tpu_torch import camera as cam
 from nerfies_tpu_torch import image_utils
+from nerfies_tpu_torch.parallel import mesh
 from nerfies_tpu_torch.utils import parallel_map
 
 
@@ -320,11 +321,10 @@ def iterator_from_pool(pool,
   slice. Streaming pools shuffle with image-windowed permutations instead
   of one O(num_rays) permutation.
   """
-  # One process until the port runs data-parallel.
   if process_index is None:
-    process_index = 0
+    process_index = mesh.rank()
   if process_count is None:
-    process_count = 1
+    process_count = mesh.world_size()
   if batch_size % process_count != 0:
     raise ValueError(f'batch_size {batch_size} not divisible by process '
                      f'count {process_count}')

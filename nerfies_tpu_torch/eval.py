@@ -19,6 +19,12 @@ NerfModel.forward, as the JAX eval renders it through `model.apply`, and
 unculled, with a warning, if culling was asked for. TensorBoard is
 optional.
 
+Under `torchrun` every rank takes part in every render, each rendering
+its slice of every chunk (`evaluation.render_camera`), and rank 0 alone
+computes the metrics on the gathered image and writes summaries, PNGs
+and the render rotation (eval.py:348-395 on a mesh). Each rank bakes the
+same occupancy grid: the bake is deterministic.
+
 `main` returns what the run measured (`Result`).
 """
 
@@ -43,7 +49,6 @@ from nerfies_tpu_torch import image_utils
 from nerfies_tpu_torch import lpips
 from nerfies_tpu_torch import minigin as gin
 from nerfies_tpu_torch import occupancy
-from nerfies_tpu_torch import resolve_device
 from nerfies_tpu_torch import schedules
 from nerfies_tpu_torch import training
 from nerfies_tpu_torch import utils
@@ -51,6 +56,7 @@ from nerfies_tpu_torch import visualization as viz
 from nerfies_tpu_torch.models import nerf as models
 from nerfies_tpu_torch.ops import mathutils
 from nerfies_tpu_torch.ops import ssim as ssim_lib
+from nerfies_tpu_torch.parallel import mesh
 
 log = logging.getLogger('nerfies_tpu_torch.eval')
 
@@ -167,6 +173,8 @@ def process_batch(*, batch, state, tag, item_id, step, render_fn,
   A batch with 'camera_params' (and scalar metadata ids) renders through
   `evaluation.render_camera`, the rays made on the device; one with
   'origins' and 'directions' arrays through `evaluation.render_image`.
+  Under a process group every rank renders; only rank 0 goes on to the
+  metrics and writes (the others return the render's timings).
   """
   if 'camera_params' in batch:
     camera = camera_lib.Camera(**batch['camera_params'])
@@ -185,6 +193,8 @@ def process_batch(*, batch, state, tag, item_id, step, render_fn,
   depth_med = out['med_depth']
   stats = {'render_time': out['render_time'],
            'rays_per_sec': out['rays_per_sec']}
+  if not mesh.is_main():
+    return stats
 
   depth_norm = functools.partial(
       viz.colorize, cmin=datasource.near, cmax=datasource.far, cmap='turbo',
@@ -367,8 +377,11 @@ class Result:
 
 
 def evaluate(args: argparse.Namespace) -> Result:
-  """eval.py's main for one device: set-up, then the checkpoint loop."""
-  device = resolve_device(args.device)
+  """eval.py's main: set-up, then the checkpoint loop, on this process's
+  device (joining the torchrun group, if any)."""
+  device = mesh.init(args.device)
+  if not mesh.is_main():
+    log.setLevel(logging.WARNING)
   exp_config, model_config, train_config, eval_config = parse_configs(
       args.gin_configs, args.gin_bindings, args.fast_preview)
 
@@ -421,7 +434,7 @@ def evaluate(args: argparse.Namespace) -> Result:
     eval_config.use_occupancy_culling = False
 
   lpips_fn = None
-  if eval_config.compute_lpips:
+  if eval_config.compute_lpips and mesh.is_main():
     lpips_fn = lpips.LPIPS(weights_path=eval_config.lpips_weights,
                            device=device)
     if not lpips_fn.calibrated:
@@ -429,7 +442,8 @@ def evaluate(args: argparse.Namespace) -> Result:
           'No LPIPS weights file configured (EvalConfig.lpips_weights); '
           'reporting the seeded random-feature fallback as lpips_uncal.')
 
-  summary_writer = _make_summary_writer(summary_dir)
+  summary_writer = (_make_summary_writer(summary_dir) if mesh.is_main()
+                    else None)
 
   val_ids = utils.strided_subset(datasource.val_ids, eval_config.num_val_eval)
   train_ids = utils.strided_subset(datasource.train_ids,
@@ -440,7 +454,9 @@ def evaluate(args: argparse.Namespace) -> Result:
   result = Result(exp_dir, {}, [], [])
   last_step = 0
   while True:
-    step = checkpoints.latest_checkpoint_step(checkpoint_dir)
+    # Rank 0's reading, so that every rank evaluates the same checkpoint.
+    step = mesh.broadcast_object(
+        checkpoints.latest_checkpoint_step(checkpoint_dir))
     if step is None or step <= last_step:
       if eval_config.eval_once:
         break
@@ -464,7 +480,8 @@ def evaluate(args: argparse.Namespace) -> Result:
           keep_samples=(eval_config.occupancy_keep_coarse,
                         eval_config.occupancy_keep_fine))
 
-    save_dir = (render_root / f'{step}') if eval_config.save_output else None
+    save_dir = (render_root / f'{step}'
+                if eval_config.save_output and mesh.is_main() else None)
     run = functools.partial(
         process_iterator, state=state, step=step, render_fn=render_fn,
         summary_writer=summary_writer, save_dir=save_dir,
@@ -487,7 +504,7 @@ def evaluate(args: argparse.Namespace) -> Result:
       result.metrics[step][tag] = means
       result.frames += [(step, tag, i, stats) for i, stats in items]
 
-    if eval_config.save_output:
+    if eval_config.save_output and mesh.is_main():
       delete_old_renders(render_root, eval_config.max_render_checkpoints)
 
     last_step = step
@@ -508,3 +525,4 @@ def main(argv: Optional[Sequence[str]] = None) -> Result:
 
 if __name__ == '__main__':
   main()
+  mesh.shutdown()

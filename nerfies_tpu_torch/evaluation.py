@@ -8,6 +8,13 @@ each chunk's work on the card's stream and fetches the outputs once at
 the end. `render_camera` makes the rays on the device from the camera's
 parameters (`camera.pixels_to_rays`); `render_image` takes rays built on
 the host.
+
+Under a process group (parallel/mesh.py) every rank renders its
+contiguous 1/N of every chunk, drawing its rows of the chunk's draws,
+and the image is gathered onto every rank, as JAX's sharded render
+returns it replicated (nerfies_tpu/evaluation.py:186-192, 267-280); the
+chunk is first rounded up to a multiple of N, as JAX rounds it to the
+device count.
 """
 
 import dataclasses
@@ -21,6 +28,7 @@ from nerfies_tpu_torch import camera as camera_lib
 from nerfies_tpu_torch import fast_render
 from nerfies_tpu_torch import resolve_device
 from nerfies_tpu_torch import utils
+from nerfies_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass
@@ -94,10 +102,35 @@ def make_render_fn(model, use_warp: bool = True, device='cuda',
 
 def _chunk_generator(model_fn, seed: int, index: int):
   """A stratified render's stream for chunk `index`, folded from `seed`
-  (`fold_in(rng, chunk)` in JAX); None for a deterministic one."""
+  (`fold_in(rng, chunk)` in JAX), of which a rank draws its rows; None
+  for a deterministic one."""
   if not model_fn.stratified:
     return None
-  return utils.fold_in(seed, index, model_fn.device)
+  return mesh.shard_generator(utils.fold_in(seed, index, model_fn.device))
+
+
+def _plan_chunks(num_rays: int, chunk: int, device_multiple: Optional[int]):
+  """(chunk, rows of a chunk this rank renders, its first row there).
+
+  The chunk is rounded up to a multiple of `device_multiple` (defaults
+  to the world size) and capped at the padded image, as JAX plans it.
+
+  Raises:
+    ValueError: a chunk that does not divide by the world size.
+  """
+  world = mesh.world_size()
+  if device_multiple is None:
+    device_multiple = world
+  chunk += mesh.pad_to_multiple(chunk, device_multiple)
+  chunk = min(chunk, num_rays + mesh.pad_to_multiple(num_rays,
+                                                     device_multiple))
+  if chunk % world != 0:
+    raise ValueError(
+        f'Render chunk size {chunk} must be divisible by the process '
+        f'count {world}; otherwise rays are silently dropped from every '
+        'chunk.')
+  per_rank = chunk // world
+  return chunk, per_rank, mesh.rank() * per_rank
 
 
 def _check_ret_key(default_ret_key):
@@ -108,10 +141,25 @@ def _check_ret_key(default_ret_key):
 
 def _gather_levels(level_outs, num_rays: int, h: int, w: int,
                    start: float) -> Dict[str, Any]:
-  """The chunks' outputs as (H, W, ...) numpy maps, with the timings."""
+  """The chunks' outputs as (H, W, ...) numpy maps, with the timings.
+
+  Under a process group each chunk's output holds this rank's rows; the
+  ranks' rows are gathered in one collective and put back in order.
+  """
   keys = ('rgb', 'depth', 'med_depth', 'acc')
-  result = {k: torch.cat([o[k] for o in level_outs])[:num_rays].cpu().numpy()
-            for k in keys}
+  local = {k: torch.cat([o[k] for o in level_outs]) for k in keys}
+  world = mesh.world_size()
+  if world > 1:
+    flat = [local[k].reshape(local[k].shape[0], -1) for k in keys]
+    rows = mesh.all_gather_rows(torch.cat(flat, dim=1))
+    # (rank, chunk, row) -> (chunk, rank, row): the image's order.
+    per_rank = level_outs[0][keys[0]].shape[0]
+    rows = rows.reshape(world, len(level_outs), per_rank, -1).transpose(0, 1)
+    rows = rows.reshape(world * len(level_outs) * per_rank, -1)
+    columns = torch.split(rows, [t.shape[1] for t in flat], dim=1)
+    local = {k: c.reshape(-1, *local[k].shape[1:])
+             for k, c in zip(keys, columns)}
+  result = {k: local[k][:num_rays].cpu().numpy() for k in keys}
   elapsed = time.perf_counter() - start
   result = {k: v.reshape((h, w, *v.shape[1:])) for k, v in result.items()}
   result['render_time'] = elapsed
@@ -125,7 +173,8 @@ def render_camera(state,
                   model_fn: Callable,
                   chunk: int = 8192,
                   default_ret_key: Optional[str] = None,
-                  seed: int = 0) -> Dict[str, Any]:
+                  seed: int = 0,
+                  device_multiple: Optional[int] = None) -> Dict[str, Any]:
   """Renders a camera's full image with the rays made on the device.
 
   Only the camera parameters and the per-image metadata ids go to the
@@ -141,7 +190,7 @@ def render_camera(state,
     metadata_ids: scalar per-image ids, e.g. {'warp': 0, 'appearance': 0,
       'camera': 0, 'time': 0.3}; integers except 'time' (float32).
     model_fn: callable from `make_render_fn`.
-    chunk / default_ret_key / seed: as `render_image`.
+    chunk / default_ret_key / seed / device_multiple: as `render_image`.
 
   Returns:
     Dict of (H, W, ...) numpy maps plus render_time / rays_per_sec.
@@ -150,7 +199,7 @@ def render_camera(state,
   device = model_fn.device
   h, w = camera.image_shape
   num_rays = h * w
-  chunk = min(chunk, num_rays)
+  chunk, rows, first = _plan_chunks(num_rays, chunk, device_multiple)
   cam = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
          for k, v in camera.ray_parameters().items()}
 
@@ -158,17 +207,18 @@ def render_camera(state,
   level_outs = []
   for lo in range(0, num_rays, chunk):
     # Padding rays clamp to the last pixel.
-    ray_idx = torch.clamp(torch.arange(lo, lo + chunk, device=device),
-                          max=num_rays - 1)
+    ray_idx = torch.clamp(
+        torch.arange(lo + first, lo + first + rows, device=device),
+        max=num_rays - 1)
     px = (ray_idx % w).float() + 0.5
     py = torch.div(ray_idx, w, rounding_mode='floor').float() + 0.5
     directions = camera_lib.pixels_to_rays(torch.stack([px, py], dim=-1),
                                            **cam)
     rays = {
-        'origins': cam['position'].expand(chunk, 3),
+        'origins': cam['position'].expand(rows, 3),
         'directions': directions,
         'metadata': {
-            k: torch.full((chunk, 1), v, device=device,
+            k: torch.full((rows, 1), v, device=device,
                           dtype=torch.float32 if k == 'time' else torch.int64)
             for k, v in metadata_ids.items()},
     }
@@ -184,7 +234,8 @@ def render_image(state,
                  model_fn: Callable,
                  chunk: int = 8192,
                  default_ret_key: Optional[str] = None,
-                 seed: int = 0) -> Dict[str, Any]:
+                 seed: int = 0,
+                 device_multiple: Optional[int] = None) -> Dict[str, Any]:
   """Renders every pixel of an image in fixed-size ray chunks.
 
   The last chunk is padded to the full chunk with copies of the last ray
@@ -197,10 +248,15 @@ def render_image(state,
     chunk: rays per call; bounds peak activation memory.
     default_ret_key: 'fine' or 'coarse'; defaults to the finest level.
     seed: a stratified model's chunk i draws from fold_in(seed, i).
+    device_multiple: round the chunk up to this multiple (defaults to the
+      world size), as JAX's `device_multiple`.
 
   Returns:
     Dict of (H, W, ...) numpy maps rgb, depth, med_depth, acc, plus
     render_time (s, host clock, ending with the copy back) and rays_per_sec.
+
+  Raises:
+    ValueError: a chunk that does not divide by the world size.
   """
   _check_ret_key(default_ret_key)
   h, w = rays_dict['origins'].shape[:2]
@@ -220,11 +276,11 @@ def render_image(state,
       part = v[lo:hi]
       if hi - lo < chunk:
         part = np.pad(part, ((0, chunk - (hi - lo)), (0, 0)), mode='edge')
-      out[k] = part
+      out[k] = part[first:first + rows]  # this rank's rows
     return out
 
   rays = flat(rays_dict)
-  chunk = min(chunk, num_rays)
+  chunk, rows, first = _plan_chunks(num_rays, chunk, device_multiple)
   start = time.perf_counter()
   level_outs = []
   for lo in range(0, num_rays, chunk):

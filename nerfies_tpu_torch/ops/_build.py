@@ -7,6 +7,11 @@ minutes. The library lands in _build/<hash>/, where <hash> covers the
 sources (the .cuh headers too) and the flags, so an edit rebuilds and an
 unchanged tree reuses the library. _build/ is listed in .gitignore.
 Nothing here runs at import time.
+
+Under a data-parallel run (parallel/mesh.py) the processes of a machine
+load the library together: local rank 0 builds it while the others wait
+at a barrier, then every rank loads it. Each launch names its card and
+stream (`launch_target`).
 """
 
 import ctypes
@@ -17,7 +22,11 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
+
+import torch
+
+from nerfies_tpu_torch.parallel import mesh
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE_DIR = os.path.join(_PKG_DIR, 'csrc')
@@ -115,12 +124,32 @@ def build_log() -> str:
     return f.read()
 
 
+def _build_once_per_machine() -> str:
+  """`build()`, run by local rank 0 alone while the other ranks of a
+  process group wait, so that N ranks do not each run nvcc."""
+  if mesh.world_size() > 1:
+    error = None
+    if mesh.local_rank() == 0:
+      try:
+        build()
+      except RuntimeError as e:  # raised after the others pass the barrier
+        error = e
+    mesh.barrier()
+    if error is not None:
+      raise error
+  return build()
+
+
 def load() -> ctypes.CDLL:
-  """The kernels' library, built if needed, with its argument types set."""
+  """The kernels' library, built if needed, with its argument types set.
+
+  Collective at its first call under a process group (see the module
+  docstring): every rank's first launch is at the same point of the step.
+  """
   global _lib
   with _lock:
     if _lib is None:
-      lib = ctypes.CDLL(build())
+      lib = ctypes.CDLL(_build_once_per_machine())
       ptr, i32 = ctypes.c_void_p, ctypes.c_int
       lib.nerf_mlp_forward.argtypes = [ptr] + [i32] * 8 + [ptr]
       lib.nerf_mlp_forward.restype = i32
@@ -139,3 +168,12 @@ def load() -> ctypes.CDLL:
       lib.fused_mlp_error_string.restype = ctypes.c_char_p
       _lib = lib
     return _lib
+
+
+def launch_target(device: torch.device) -> Tuple[int, int]:
+  """(card index, stream handle) of a launch on `device`: the tensor's own
+  card, not card 0 by default, and that card's current stream. The
+  library's entry points make the card current before they launch."""
+  index = (device.index if device.index is not None
+           else torch.cuda.current_device())
+  return index, torch.cuda.current_stream(index).cuda_stream

@@ -349,8 +349,7 @@ def _launch_nerf(x, rgb_row_bias, ops: NerfOperands, trunk_depth, skips):
   lib = _build.load()
   rc = lib.nerf_mlp_forward(
       ctypes.addressof(ptrs), n, c_in, trunk_depth, skip_mask, flags,
-      ops.width, ops.rgb_width, x.device.index or 0,
-      torch.cuda.current_stream(x.device).cuda_stream)
+      ops.width, ops.rgb_width, *_build.launch_target(x.device))
   _check_launch(lib, rc, name)
   nerf_mlp_forward.launches += 1
   return alpha, rgb
@@ -418,7 +417,7 @@ def _launch_warp(x, row_biases, ops: WarpOperands, trunk_depth):
   lib = _build.load()
   rc = lib.warp_trunk_forward(
       ctypes.addressof(ptrs), n, c_in, trunk_depth, skip_mask, ops.width,
-      x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+      *_build.launch_target(x.device))
   _check_launch(lib, rc, name)
   warp_trunk_forward.launches += 1
   return out
@@ -625,8 +624,9 @@ class _WeightGrads:
     return 256 if max(j['n'] for j in self.jobs) > 128 else 128
 
   def run(self, lib, rows_of, bias_rows_of, partial, flat, accumulate,
-          device, stream):
-    """One chunk: rows_of(job) rows, bias over bias_rows_of(job) rows."""
+          target):
+    """One chunk: rows_of(job) rows, bias over bias_rows_of(job) rows;
+    `target` is the launch's (card, stream), _build.launch_target."""
     ptrs = _pointer_array([t for j in self.jobs for t in (j['a'], j['g'])])
     ints = []
     for j in self.jobs:
@@ -638,7 +638,7 @@ class _WeightGrads:
     rc = lib.weight_grad(ctypes.addressof(ptrs), ctypes.addressof(int_array),
                          len(self.jobs), self.tile_n, splits,
                          partial.data_ptr(), self.size, flat.data_ptr(),
-                         int(accumulate), device.index or 0, stream)
+                         int(accumulate), *target)
     _check_launch(lib, rc, 'weight_grad')
 
   def splits(self, sms):
@@ -771,17 +771,17 @@ def _nerf_bwd_passes(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
            | (_RGB_FROM_BT if ops.rgb_from_bt else 0))
   skip_mask = sum(1 << i for i in ops.trunk_wx)
   lib = _build.load()
-  stream = torch.cuda.current_stream(device).cuda_stream
+  target = _build.launch_target(device)
 
   def row_pass(row0, rows):
     rc = lib.nerf_mlp_backward_rows(
         ctypes.addressof(ptrs), row0, rows, c_in, depth, skip_mask, flags,
-        width, rgb_width, device.index or 0, stream)
+        width, rgb_width, *target)
     _check_launch(lib, rc, name)
 
   def weight_pass(row0, rows):
     grads.run(lib, lambda j: rows, lambda j: rows, partial, flat, row0 > 0,
-              device, stream)
+              target)
 
   def finish():
     dws = grads.views(flat)

@@ -289,8 +289,7 @@ def _launch_fwd(x, e, tangents, ops, trunk_depth, skips):
   rc = lib.warp_train_forward(
       ctypes.addressof(ptrs), n, c_in, e.shape[1], trunk_depth,
       sum(1 << i for i in range(trunk_depth) if _is_skip(i, skips)), nt,
-      ops['w0'].shape[1], x.device.index or 0,
-      torch.cuda.current_stream(x.device).cuda_stream)
+      ops['w0'].shape[1], *_build.launch_target(x.device))
   _check_launch(lib, rc, name)
   warp_mlp_forward.launches += 1
   return out, jouts
@@ -372,7 +371,7 @@ def _bwd_passes(x, e, tangents, g_out, g_jouts, ops, trunk_depth, skips,
       + [ws_gh] + ws_gp + pad)
   skip_mask = sum(1 << i for i in range(depth) if _is_skip(i, skips))
   lib = _build.load()
-  stream = torch.cuda.current_stream(device).cuda_stream
+  target = _build.launch_target(device)
 
   def rows_chunk(rows):  # the chains' stride in a chunk's workspace
     return -(-rows // tile) * tile
@@ -381,13 +380,13 @@ def _bwd_passes(x, e, tangents, g_out, g_jouts, ops, trunk_depth, skips,
     rc = lib.warp_train_backward_rows(
         ctypes.addressof(ptrs), n, row0, rows, rows_chunk(rows), c_in,
         f_embed, depth, skip_mask, nt, int(need_dx), width,
-        device.index or 0, stream)
+        *target)
     _check_launch(lib, rc, name)
 
   def weight_pass(row0, rows):
     stride = rows_chunk(rows)
     grads.run(lib, lambda j: stride * (chains if j['name'] in chained else 1),
-              lambda j: stride, partial, flat, row0 > 0, device, stream)
+              lambda j: stride, partial, flat, row0 > 0, target)
 
   def finish():
     dws = grads.views(flat)

@@ -7,12 +7,16 @@ given none, it samples deterministically. The two frameworks' streams
 differ, so tests compare the deterministic paths and the statistics of
 the random ones. The reference locates the inverse-CDF bin with a one-hot
 matmul, a TPU rewrite; here `torch.searchsorted` and `torch.gather` do
-it, with the same results.
+it, with the same results. Under data parallelism the generator is a
+`parallel.mesh.RankRows` stream: each draw is made at the global rows
+and cut to this rank's (`mesh.draw`).
 """
 
 from typing import Optional
 
 import torch
+
+from nerfies_tpu_torch.parallel import mesh
 
 
 def sample_along_rays(origins: torch.Tensor, directions: torch.Tensor,
@@ -44,8 +48,8 @@ def sample_along_rays(origins: torch.Tensor, directions: torch.Tensor,
     mids = 0.5 * (z_vals[1:] + z_vals[:-1])
     upper = torch.cat([mids, z_vals[-1:]])
     lower = torch.cat([z_vals[:1], mids])
-    t_rand = torch.rand((origins.shape[0], num_samples), generator=generator,
-                        dtype=origins.dtype, device=origins.device)
+    t_rand = mesh.draw(torch.rand, (origins.shape[0], num_samples),
+                       generator, dtype=origins.dtype, device=origins.device)
     z_vals = lower + (upper - lower) * t_rand
   else:
     z_vals = z_vals[None, :].expand(origins.shape[0], num_samples)
@@ -127,8 +131,8 @@ def piecewise_constant_pdf(bins: torch.Tensor, weights: torch.Tensor,
   cdf = cdf / cdf[..., -1:]
   cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1).contiguous()
   if generator is not None:
-    u = torch.rand((cdf.shape[0], num_samples), generator=generator,
-                   dtype=cdf.dtype, device=cdf.device)
+    u = mesh.draw(torch.rand, (cdf.shape[0], num_samples), generator,
+                  dtype=cdf.dtype, device=cdf.device)
   else:
     u = torch.linspace(0.0, 1.0, num_samples, dtype=cdf.dtype,
                        device=cdf.device).expand(cdf.shape[0], num_samples)
@@ -182,8 +186,8 @@ def noise_regularize(raw_sigma: torch.Tensor, noise_std: Optional[float],
                      ) -> torch.Tensor:
   """Adds N(0, noise_std^2) to raw densities when training stratified."""
   if noise_std is not None and noise_std > 0.0 and use_stratified_sampling:
-    noise = torch.randn(raw_sigma.shape, generator=generator,
-                        dtype=raw_sigma.dtype, device=raw_sigma.device)
+    noise = mesh.draw(torch.randn, raw_sigma.shape, generator,
+                      dtype=raw_sigma.dtype, device=raw_sigma.device)
     raw_sigma = raw_sigma + noise * noise_std
   return raw_sigma
 

@@ -11,7 +11,9 @@ frames, plus an mp4 where imageio can write one:
       --gin_configs configs/tpu_vrig_paper.gin --camera_path orbit-mild
 
 `--device cpu` runs the plain PyTorch path; without it the CLI needs a
-card. `main` returns the paths of the frames it wrote.
+card. Under `torchrun` every rank renders its slice of every chunk and
+rank 0 writes the frames. `main` returns the paths of the frames it
+wrote (none on the other ranks).
 """
 
 import argparse
@@ -27,10 +29,10 @@ from nerfies_tpu_torch import datasets
 from nerfies_tpu_torch import evaluation
 from nerfies_tpu_torch import image_utils
 from nerfies_tpu_torch import minigin as gin
-from nerfies_tpu_torch import resolve_device
 from nerfies_tpu_torch import schedules
 from nerfies_tpu_torch import training
 from nerfies_tpu_torch.models import nerf as models
+from nerfies_tpu_torch.parallel import mesh
 
 log = logging.getLogger('nerfies_tpu_torch.render_video')
 
@@ -64,7 +66,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def render(args: argparse.Namespace) -> List[Path]:
-  device = resolve_device(args.device)
+  device = mesh.init(args.device)
+  if not mesh.is_main():
+    log.setLevel(logging.WARNING)
   gin.clear_config()
   gin.add_search_path('configs')
   gin.parse_config_files_and_bindings(config_files=args.gin_configs,
@@ -107,7 +111,8 @@ def render(args: argparse.Namespace) -> List[Path]:
     raise ValueError(f'No cameras found for path {args.camera_path!r}')
   log.info('Rendering %d frames', len(cameras))
   out_dir = Path(args.output_dir or Path(args.base_folder) / 'video')
-  out_dir.mkdir(parents=True, exist_ok=True)
+  if mesh.is_main():
+    out_dir.mkdir(parents=True, exist_ok=True)
 
   metadata_ids = {
       'warp': args.warp_id,
@@ -119,6 +124,8 @@ def render(args: argparse.Namespace) -> List[Path]:
   for i, camera in enumerate(cameras):
     out = evaluation.render_camera(state, camera, metadata_ids, render_fn,
                                    chunk=args.chunk)
+    if not mesh.is_main():
+      continue
     frame = image_utils.image_to_uint8(out['rgb'])
     path = out_dir / f'{i:06d}.png'
     image_utils.save_image(path, frame)
@@ -126,6 +133,8 @@ def render(args: argparse.Namespace) -> List[Path]:
     paths.append(path)
     log.info('frame %d: %.0f rays/s', i, out['rays_per_sec'])
 
+  if not mesh.is_main():
+    return paths
   try:
     import imageio.v2 as imageio
     imageio.mimwrite(out_dir / 'video.mp4', frames, fps=20)
@@ -145,3 +154,4 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
 
 if __name__ == '__main__':
   main()
+  mesh.shutdown()

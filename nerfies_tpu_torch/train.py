@@ -9,11 +9,25 @@ fused kernels, or NerfModel.forward where JAX runs `model.apply`):
       --gin_configs configs/gpu_vrig_paper.gin
 
 `--device cpu` runs on the CPU (the kernels' plain versions); without it
-the CLI needs a card. The step takes JAX's route: the fused kernels when
-`use_fused_mlp` is set and the architecture is covered (as in
-configs/tpu_*.gin), the plain forward otherwise (every configs/gpu_*.gin
-and test_*.gin). Only an activation other than relu on the fused route is
-refused, before any data is read.
+the CLI needs a card. Under `torchrun` it trains data-parallel over the
+machine's cards (train.py:115-216 on a mesh), one process per card on
+cuda:{LOCAL_RANK}:
+
+  torchrun --standalone --nproc_per_node=4 -m nerfies_tpu_torch.train \
+      --base_folder EXP --data_dir SCENE \
+      --gin_configs configs/gpu_quarterhd_4gpu.gin
+
+Each rank takes its contiguous 1/N of every global batch (and of the
+background points batch, trimmed to a multiple of N), the step averages
+gradients and stats in one all-reduce, and only rank 0 writes:
+directories, config.gin, logs, TensorBoard and checkpoints. The batch
+size must divide by the world size.
+
+The step takes JAX's route: the fused kernels when `use_fused_mlp` is
+set and the architecture is covered (as in configs/tpu_*.gin), the plain
+forward otherwise (every configs/gpu_*.gin and test_*.gin). Only an
+activation other than relu on the fused route is refused, before any
+data is read.
 
 The set-up (`setup`: configs through the restored state) and the loop
 (`train`) are separate functions; `main` runs both and returns what they
@@ -36,13 +50,13 @@ from nerfies_tpu_torch import datasets
 from nerfies_tpu_torch import fused_train
 from nerfies_tpu_torch import gpath
 from nerfies_tpu_torch import minigin as gin
-from nerfies_tpu_torch import resolve_device
 from nerfies_tpu_torch import schedules
 from nerfies_tpu_torch import training
 from nerfies_tpu_torch import utils
 from nerfies_tpu_torch.datasets import core as datasets_core
 from nerfies_tpu_torch.models import nerf as models
 from nerfies_tpu_torch.ops import fused_mlp
+from nerfies_tpu_torch.parallel import mesh
 
 log = logging.getLogger('nerfies_tpu_torch.train')
 
@@ -130,9 +144,12 @@ class Setup:
 
 
 def setup(args: argparse.Namespace) -> Setup:
-  """train.py:98-205 for one device: configs through the restored state."""
+  """train.py:98-205: configs through the restored state, on this
+  process's device (joining the torchrun group, if any)."""
+  device = mesh.init(args.device)
+  if not mesh.is_main():
+    log.setLevel(logging.WARNING)
   log.info('*** Starting experiment')
-  device = resolve_device(args.device)
   exp_config, model_config, train_config = parse_configs(
       args.gin_configs, args.gin_bindings)
 
@@ -141,15 +158,20 @@ def setup(args: argparse.Namespace) -> Setup:
     exp_dir = exp_dir / exp_config.subname
   summary_dir = exp_dir / 'summaries' / 'train'
   checkpoint_dir = exp_dir / 'checkpoints'
-  for d in (exp_dir, summary_dir, checkpoint_dir):
-    if not d.exists():
-      d.mkdir(parents=True, exist_ok=True)
-  config_str = gin.operative_config_str()
-  log.info('Configuration: \n%s', config_str)
-  with (exp_dir / 'config.gin').open('w') as f:
-    f.write(config_str)
+  if mesh.is_main():
+    for d in (exp_dir, summary_dir, checkpoint_dir):
+      if not d.exists():
+        d.mkdir(parents=True, exist_ok=True)
+    config_str = gin.operative_config_str()
+    log.info('Configuration: \n%s', config_str)
+    with (exp_dir / 'config.gin').open('w') as f:
+      f.write(config_str)
+  log.info('Starting process %d of %d on %s.', mesh.rank(),
+           mesh.world_size(), device)
 
-  np.random.seed(exp_config.random_seed)
+  np.random.seed(exp_config.random_seed + mesh.rank())
+  if train_config.batch_size % mesh.world_size() != 0:
+    raise ValueError('Batch size must be divisible by the number of devices.')
 
   datasource_spec = exp_config.datasource_spec
   if datasource_spec is None:
@@ -181,9 +203,12 @@ def setup(args: argparse.Namespace) -> Setup:
     points = datasource.load_points(shuffle=True)
     points_batch_size = min(len(points),
                             train_config.background_points_batch_size)
-    points_iter = datasets_core.iterator_from_arrays(
+    points_batch_size -= points_batch_size % mesh.world_size()
+    # Every rank draws the global points batch and keeps its rows.
+    rows = mesh.local_batch_slice(points_batch_size)
+    points_iter = (batch[rows] for batch in datasets_core.iterator_from_arrays(
         points, batch_size=points_batch_size, shuffle=True,
-        seed=exp_config.random_seed, prefetch_size=3)
+        seed=exp_config.random_seed, prefetch_size=3))
 
   scheds = {
       'learning_rate': schedules.from_config(train_config.lr_schedule),
@@ -279,6 +304,8 @@ class Result:
   stats: Optional[Dict[str, Any]]
   time_tracker: utils.TimeTracker
   save_seconds: List[float]
+  # mesh.collective_stats of the run: all-reduce calls, bytes and ms.
+  collectives: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def train(run: Setup, args: argparse.Namespace) -> Result:
@@ -288,7 +315,8 @@ def train(run: Setup, args: argparse.Namespace) -> Result:
   state = run.state
   scalar_params = run.scalar_params
   train_step = training.make_train_step(run.model, train_config, run.device)
-  summary_writer = _make_summary_writer(run.summary_dir)
+  summary_writer = (_make_summary_writer(run.summary_dir) if mesh.is_main()
+                    else None)
   if summary_writer:
     summary_writer.add_text('gin/train', gin.operative_config_str(), 0)
 
@@ -300,6 +328,7 @@ def train(run: Setup, args: argparse.Namespace) -> Result:
     save_seconds.append(time.perf_counter() - start)
 
   log.info('Starting training from step %d', run.init_step)
+  mesh.collective_stats(reset=True)
   profiler = None
   time_tracker = utils.TimeTracker()
   time_tracker.tic('data', 'total')
@@ -366,7 +395,14 @@ def train(run: Setup, args: argparse.Namespace) -> Result:
     summary_writer.close()
   if step >= run.init_step and host_stats is None:
     host_stats = _to_host(stats)
-  return Result(run, state, host_stats, time_tracker, save_seconds)
+  collectives = mesh.collective_stats()
+  if collectives['calls']:
+    log.info('all-reduce over %d ranks: %d calls, %d bytes and %.3f ms a '
+             'step', mesh.world_size(), collectives['calls'],
+             collectives['bytes'] // collectives['calls'],
+             collectives['ms'] / collectives['calls'])
+  return Result(run, state, host_stats, time_tracker, save_seconds,
+                collectives)
 
 
 def _start_profile(device):
@@ -381,7 +417,8 @@ def _start_profile(device):
 def _stop_profile(profiler, profile_dir, step):
   profiler.stop()
   os.makedirs(profile_dir, exist_ok=True)
-  path = os.path.join(profile_dir, f'trace_to_step_{step}.json')
+  rank = f'_rank{mesh.rank()}' if mesh.world_size() > 1 else ''
+  path = os.path.join(profile_dir, f'trace_to_step_{step}{rank}.json')
   profiler.export_chrome_trace(path)
   log.info('Wrote a torch.profiler trace to %s', path)
 
@@ -396,3 +433,4 @@ def main(argv: Optional[Sequence[str]] = None) -> Result:
 
 if __name__ == '__main__':
   main()
+  mesh.shutdown()

@@ -17,14 +17,22 @@ key instead, so the two draw different numbers.
 
 The 'median' elastic reduction without dense Jacobians linearizes the
 plain warp field at each ray's median-depth point (`_median_jacobian`),
-as JAX does. Not ported yet: the mesh-sharded step waits for its own
-slice.
+as JAX does.
+
+Data parallelism (nerfies_tpu/training.py:327-360, `compile_train_step`
+on a mesh): under a process group of N ranks (parallel/mesh.py) each
+rank steps on its contiguous 1/N of the global batch, draws its rows of
+the global draws (`mesh.shard_generator`), and the gradients and stats
+are averaged over ranks in one all-reduce before Adam; `metric/psnr` is
+then derived from the averaged `loss/rgb`, as JAX derives it from the
+global batch's. At world size 1 nothing is reduced.
 The training CLI (train.py) drives `make_train_step` with the schedules
 (schedules.py), the data pipeline (datasets/) and checkpoints
 (checkpoints.py).
 """
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -37,6 +45,7 @@ from nerfies_tpu_torch.ops import fused_mlp
 from nerfies_tpu_torch.ops import mathutils
 from nerfies_tpu_torch.ops import rendering
 from nerfies_tpu_torch.ops import svd3
+from nerfies_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass
@@ -166,9 +175,9 @@ def draw_background(model, num_points: int,
   """The background loss's draws: (P, 1) warp ids from model.warp_ids,
   uniformly, and (P, 3) standard normal noise."""
   ids = torch.as_tensor(model.warp_ids, dtype=torch.int64, device=device)
-  choice = torch.randint(len(model.warp_ids), (num_points, 1),
-                         generator=generator, device=device)
-  noise = torch.randn((num_points, 3), generator=generator, device=device)
+  choice = mesh.draw(functools.partial(torch.randint, len(model.warp_ids)),
+                     (num_points, 1), generator, device=device)
+  noise = mesh.draw(torch.randn, (num_points, 3), generator, device=device)
   return ids[choice], noise
 
 
@@ -230,20 +239,23 @@ def train_step(model,
   Args:
     model: the NerfModel (static architecture).
     generator: the step's random stream, on the batch's device (None for
-      a model without stratified sampling and with `background_draws`).
+      a model without stratified sampling and with `background_draws`);
+      the same on every rank of a data-parallel run.
     state: TrainState; its params lie on the batch's device.
     batch: {'origins', 'directions', 'rgb', 'metadata', 'background_points'?}
-      as tensors.
+      as tensors: this rank's slice of the global batch.
     scalar_params: the step's scalars (learning rate, loss weights).
     use_*: the loss switches, as in the JAX step.
     background_draws: (ids, noise) for the background loss in place of
-      drawing them (see compute_background_loss).
+      drawing them (see compute_background_loss), for this rank's points.
 
   Returns:
     (new_state, stats): stats holds 0-d tensors per level
-    ('fine' / 'coarse' dicts) and 'background_loss', as the JAX step's.
+    ('fine' / 'coarse' dicts) and 'background_loss', as the JAX step's;
+    under a process group, the means over ranks.
   """
   params = state.params
+  generator = mesh.shard_generator(generator)
 
   def median_jacobian(model_out):
     """The (3, 3, B, 1) warp Jacobians at each ray's median-depth point
@@ -336,15 +348,33 @@ def train_step(model,
   flat = fused_mlp.flatten_tree(params)
   leaves = [t for _, t in flat]
   grads = torch.autograd.grad(total, leaves, allow_unused=True)
-  grads = fused_mlp.unflatten_tree(
-      [p for p, _ in flat],
-      [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)])
+  grads = [torch.zeros_like(t) if g is None else g
+           for t, g in zip(leaves, grads)]
+  stats = _map(lambda t: t.detach(), stats)
+  if mesh.world_size() > 1:
+    grads, stats = _mean_over_ranks(grads, stats)
+  grads = fused_mlp.unflatten_tree([p for p, _ in flat], grads)
   with torch.no_grad():
     new_params, new_opt_state = adam_update(
         grads, state.opt_state, params, scalar_params.learning_rate)
-  stats = _map(lambda t: t.detach(), stats)
   return dataclasses.replace(state, step=state.step + 1, params=new_params,
                              opt_state=new_opt_state), stats
+
+
+def _mean_over_ranks(grads, stats):
+  """The gradients and stats averaged over ranks in one all-reduce, with
+  each level's `metric/psnr` derived anew from its averaged `loss/rgb`."""
+  flat_stats = fused_mlp.flatten_tree(stats)
+  values = [t.to(grads[0].dtype).reshape(1) for _, t in flat_stats]
+  reduced = mesh.all_reduce_mean(list(grads) + values)
+  grads = reduced[:len(grads)]
+  stats = fused_mlp.unflatten_tree(
+      [p for p, _ in flat_stats],
+      [t.reshape(()) for t in reduced[len(grads):]])
+  for level in stats.values():
+    if isinstance(level, dict) and 'metric/psnr' in level:
+      level['metric/psnr'] = mathutils.compute_psnr(level['loss/rgb'])
+  return grads, stats
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:

@@ -20,7 +20,9 @@ from nerfies_tpu_torch.models import nerf
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / 'nerfies_tpu_torch').rglob('*.py')) + [
     REPO / 'chip_smoke.py', REPO / 'scripts' / 'time_warp_backward.py',
-    REPO / 'scripts' / 'time_forwards.py']
+    REPO / 'scripts' / 'time_forwards.py',
+    # The module the spawned ranks of tests/test_torch_parallel.py import.
+    REPO / 'tests' / 'torch_parallel_workers.py']
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nerfies_tpu', 'absl',
              'tensorflow', 'cv2', 'PIL', 'matplotlib')
 # Absent at import time too: fsspec is imported only for a cloud path.
@@ -106,3 +108,40 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
   proc = _python(['chip_smoke.py'], cwd=tmp_path)
   assert proc.returncode != 0
   assert '"ok"' not in proc.stdout
+
+
+def test_data_parallel_modules_are_port_files():
+  for path in ('parallel/__init__.py', 'parallel/mesh.py', 'profiling.py'):
+    assert REPO / 'nerfies_tpu_torch' / path in PORT_FILES, path
+
+
+def test_chip_smoke_ddp_children_import_no_jax(tmp_path):
+  """The ddp phase's children (chip_smoke.py --ddp_child under
+  torch.distributed.run), run here as 2 gloo ranks on a tiny scene: each
+  reports the JAX modules that chip_smoke.py and the port loaded (none),
+  its device and its rank."""
+  import chip_smoke
+  from nerfies_tpu_torch.datasets import synthetic
+  scene = tmp_path / 'scene'
+  synthetic.write_synthetic_dataset(scene, num_train=2, num_val=1,
+                                    image_size=(12, 8), num_points=16,
+                                    motion_amplitude=0.05)
+  argv = ['--base_folder', str(tmp_path / 'exp'), '--data_dir', str(scene),
+          '--device', 'cpu', '--gin_configs',
+          str(REPO / 'configs' / 'test_local.gin')]
+  for binding in ('ExperimentConfig.image_scale = 1',
+                  'TrainConfig.batch_size = 8', 'TrainConfig.max_steps = 1',
+                  'ModelConfig.num_coarse_samples = 4',
+                  'ModelConfig.num_fine_samples = 4',
+                  'ModelConfig.nerf_trunk_depth = 1',
+                  'ModelConfig.nerf_trunk_width = 8',
+                  'ModelConfig.nerf_skips = ()',
+                  "ModelConfig.warp_kwargs = {'trunk_depth': 1, "
+                  "'skips': ()}"):
+    argv += ['--gin_bindings', binding]
+  reports, _ = chip_smoke.torchrun(tmp_path, 'hygiene', 'train', argv, 2,
+                                   device_type='cpu')
+  assert [r['rank'] for r in reports] == [0, 1]
+  for report in reports:
+    assert report['forbidden_modules'] == []
+    assert report['device'] == 'cpu' and report['world_size'] == 2
