@@ -120,8 +120,9 @@ non-zero exit at the first phase that fails:
            --nproc_per_node=<torch.cuda.device_count()>` (NCCL, one process
            per card, each on cuda:{LOCAL_RANK}; world size 1 on a machine
            of one card), each rank running `chip_smoke.py --ddp_child`,
-           which writes its launch counts, numbers and loaded JAX modules
-           (none may be) to a report. The training CLI on the cli phase's
+           which writes its launch counts, the cards its launches were
+           given, numbers and loaded JAX modules (none may be) to a
+           report; rank r must launch on card r only. The training CLI on the cli phase's
            capture with configs/tpu_vrig_paper.gin for 3 steps, resumed to
            5, held against the same runs in this process: at world size 1
            params and stats bit-identical, at N > 1 stats at rtol 0.05,
@@ -142,6 +143,10 @@ The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Usage: python3 chip_smoke.py [--seed 0]
+
+`python3 chip_smoke.py --ddp_only` runs the device, build and ddp phases
+alone, on a machine of several cards (world size torch.cuda.device_count()),
+and prints no result line.
 """
 
 import argparse
@@ -1391,6 +1396,16 @@ def _same_state(got, want):
           and all(torch.equal(a[k], b[k]) for k in b))
 
 
+def write_capture(scene):
+  """The synthetic capture that the cli, eval and ddp phases read."""
+  start = time.perf_counter()
+  synthetic.write_synthetic_dataset(
+      scene, num_train=CLI_FRAMES[0], num_val=CLI_FRAMES[1],
+      image_size=CLI_IMAGE_SIZE, num_points=CLI_POINTS,
+      motion_amplitude=0.05, texture_frequency=8.0, env_background=True)
+  print(f'  wrote the capture in {time.perf_counter() - start:.2f} s')
+
+
 def phase_cli(train_step_ms, work):
   """The training CLI on a synthetic capture, run, saved and resumed.
 
@@ -1398,12 +1413,7 @@ def phase_cli(train_step_ms, work):
   """
   card = card_label()
   scene, exp = work / 'scene', work / 'exp'
-  start = time.perf_counter()
-  synthetic.write_synthetic_dataset(
-      scene, num_train=CLI_FRAMES[0], num_val=CLI_FRAMES[1],
-      image_size=CLI_IMAGE_SIZE, num_points=CLI_POINTS,
-      motion_amplitude=0.05, texture_frequency=8.0, env_background=True)
-  print(f'  wrote the capture in {time.perf_counter() - start:.2f} s')
+  write_capture(scene)
   frame = scene / 'rgb' / '1x' / '0000.png'
   decode = []
   for _ in range(3):
@@ -1728,9 +1738,10 @@ def ddp_child(argv):
   """One rank of a ddp run (started by torchrun): `--ddp_child MODE REPORT
   -- CLI ARGS`. MODE 'train' runs nerfies_tpu_torch.train.main, 'eval'
   nerfies_tpu_torch.eval.main, with the launch counts set to 0 just
-  before; REPORT.rank<r>.json gets the counts, the run's numbers and the
-  JAX modules loaded (none may be); 'eval' also keeps rank 0's frames
-  (rgb, depth, acc) in REPORT.frames.npz."""
+  before; REPORT.rank<r>.json gets the counts, the cards the launches
+  were given (_build.launch_cards) and the card current after the run,
+  the run's numbers and the JAX modules loaded (none may be); 'eval' also
+  keeps rank 0's frames (rgb, depth, acc) in REPORT.frames.npz."""
   mode, report = argv[0], argv[1]
   cli_argv = argv[argv.index('--') + 1:]
   # Read before the run: a TensorBoard writer may import TensorFlow, and
@@ -1759,6 +1770,9 @@ def ddp_child(argv):
   out.update(rank=mesh.rank(),
              world_size=mesh.world_size(), device=str(device),
              launches=fused_mlp.launch_counts(),
+             launch_cards=_build.launch_cards(),
+             current_card=(torch.cuda.current_device()
+                           if device.type == 'cuda' else None),
              peak_gb=(torch.cuda.max_memory_allocated(device) / 2**30
                       if device.type == 'cuda' else 0.0),
              forbidden_modules=forbidden)
@@ -1775,7 +1789,10 @@ def torchrun(work, tag, mode, cli_argv, world, device_type='cuda'):
   """`python -m torch.distributed.run --standalone --nproc_per_node=world
   chip_smoke.py --ddp_child mode ...` from the repo's root; returns each
   rank's report and the seconds the command took. Fails with the log's
-  end if it fails; stops the whole process group if it overruns."""
+  end if it fails; stops the whole process group if it overruns. On the
+  card, rank r must have launched on card r only and left it current;
+  `device_type` 'cpu' (gloo ranks, each CLI's `--device cpu`) launches
+  on no card."""
   repo = pathlib.Path(__file__).resolve().parent
   report = work / f'ddp_{tag}'
   cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
@@ -1801,10 +1818,16 @@ def torchrun(work, tag, mode, cli_argv, world, device_type='cuda'):
     with open(f'{report}.rank{r}.json') as f:
       reports.append(json.load(f))
   for rep in reports:
-    want = f'cuda:{rep["rank"]}' if device_type == 'cuda' else device_type
+    r = rep['rank']
+    want = f'cuda:{r}' if device_type == 'cuda' else device_type
     check(rep['world_size'] == world and rep['device'] == want,
-          f'{tag}: rank {rep["rank"]} of {rep["world_size"]} ran on '
-          f'{rep["device"]}')
+          f'{tag}: rank {r} of {rep["world_size"]} ran on {rep["device"]}')
+    launched = any(rep['launches'].values())
+    cards = [r] if launched and device_type == 'cuda' else []
+    check(rep['launch_cards'] == cards,
+          f'{tag}: rank {r} launched on cards {rep["launch_cards"]}')
+    check(rep['current_card'] == (r if device_type == 'cuda' else None),
+          f'{tag}: rank {r} left card {rep["current_card"]} current')
     check(not rep['forbidden_modules'],
           f'{tag}: a ddp child loaded {rep["forbidden_modules"]}')
   return reports, seconds
@@ -1815,24 +1838,19 @@ def _add_counts(total, counts):
     total[name] = total.get(name, 0) + count
 
 
-def phase_ddp(work, device_type='cuda'):
-  """The training and eval CLIs under torchrun over every card, held
-  against the same runs in this process, and the 4-device config.
-
-  `device_type` 'cpu' rehearses the phase with gloo ranks on the CPU
-  (each CLI's `--device cpu`); on the card it is 'cuda', so that each
-  rank takes its card, cuda:{LOCAL_RANK}."""
+def phase_ddp(work):
+  """The training and eval CLIs under torchrun over every card (NCCL,
+  each rank on its card, cuda:{LOCAL_RANK}), held against the same runs
+  in this process, and the 4-device config."""
   card = card_label()
   world = torch.cuda.device_count()
-  print(f'  world size {world} (torch.cuda.device_count()), '
-        f'{"NCCL" if device_type == "cuda" else "gloo"}')
+  print(f'  world size {world} (torch.cuda.device_count()), NCCL')
   scene = work / 'scene'
   bindings = (f'TrainConfig.save_every = {DDP_FIRST_STEPS}',)
-  device_argv = [] if device_type == 'cuda' else ['--device', device_type]
 
   def train_argv(exp, gin_file, max_steps, *extra):
     argv = ['--base_folder', str(exp), '--data_dir', str(scene),
-            '--gin_configs', gin_file, *device_argv]
+            '--gin_configs', gin_file]
     for binding in ('ExperimentConfig.image_scale = 1',
                     f'TrainConfig.max_steps = {max_steps}',
                     'TrainConfig.print_every = 1',
@@ -1847,15 +1865,14 @@ def phase_ddp(work, device_type='cuda'):
     ref_stats = train_cli.main(train_argv(ref_exp, CLI_GIN, steps,
                                           *bindings)).stats
   eval_argv = ['--base_folder', str(ref_exp), '--data_dir', str(scene),
-               '--gin_configs', CLI_GIN, *device_argv]
+               '--gin_configs', CLI_GIN]
   for binding in DDP_EVAL_BINDINGS:
     eval_argv += ['--gin_bindings', binding]
   with _kept_frames() as ref_frames:
     eval_cli.main(eval_argv)
   # Nothing of this process may hold the card's memory for the children.
   gc.collect()
-  if device_type == 'cuda':
-    torch.cuda.empty_cache()
+  torch.cuda.empty_cache()
 
   counts = {}
   exp = work / 'exp_ddp'
@@ -1863,7 +1880,7 @@ def phase_ddp(work, device_type='cuda'):
   for steps in (DDP_FIRST_STEPS, DDP_LAST_STEP):
     reports, seconds = torchrun(
         work, f'train{steps}', 'train',
-        train_argv(exp, CLI_GIN, steps, *bindings), world, device_type)
+        train_argv(exp, CLI_GIN, steps, *bindings), world)
     runs.append(reports)
     for rep in reports:
       _add_counts(counts, rep['launches'])
@@ -1871,7 +1888,8 @@ def phase_ddp(work, device_type='cuda'):
     print(f'  torchrun train to step {steps}: {seconds:.1f} s; rank 0 '
           f'from step {reports[0]["init_step"]}, train_step '
           f'{[round(v * 1e3, 2) for v in reports[0]["train_step_s"]]} ms; '
-          f'launches per rank {[rep["launches"] for rep in reports]}; peak '
+          f'launches per rank {[rep["launches"] for rep in reports]} on '
+          f'cards {[rep["launch_cards"] for rep in reports]}; peak '
           f'{[round(rep["peak_gb"], 2) for rep in reports]} GiB')
   check(runs[1][0]['init_step'] == DDP_FIRST_STEPS + 1,
         f'the resumed ddp run starts at {runs[1][0]["init_step"]}')
@@ -1906,8 +1924,7 @@ def phase_ddp(work, device_type='cuda'):
   reports, seconds = torchrun(
       work, 'plain', 'train',
       train_argv(work / 'exp_ddp_plain', DDP_PLAIN_GIN, DDP_PLAIN_STEPS,
-                 f'TrainConfig.save_every = {DDP_PLAIN_STEPS}'), world,
-      device_type)
+                 f'TrainConfig.save_every = {DDP_PLAIN_STEPS}'), world)
   for rep in reports:
     _add_counts(counts, rep['launches'])
     check(not rep['fused_route'], f'{DDP_PLAIN_GIN} took the fused route')
@@ -1930,8 +1947,7 @@ def phase_ddp(work, device_type='cuda'):
 
   # The eval CLI under torchrun on step DDP_LAST_STEP's checkpoint.
   eval_argv[1] = str(exp)
-  reports, seconds = torchrun(work, 'eval', 'eval', eval_argv, world,
-                              device_type)
+  reports, seconds = torchrun(work, 'eval', 'eval', eval_argv, world)
   for rep in reports:
     _add_counts(counts, rep['launches'])
   frames = np.load(work / 'ddp_eval.frames.npz')
@@ -2012,9 +2028,22 @@ def main(argv=None):
     return 0
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--seed', type=int, default=0)
+  parser.add_argument('--ddp_only', action='store_true',
+                      help='the device, build and ddp phases alone, over '
+                      'every card of the machine; no result line')
   args = parser.parse_args(argv)
   total = time.perf_counter()
   work = pathlib.Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
+  if args.ddp_only:
+    try:
+      run_phase('device', phase_device)
+      run_phase('build', phase_build)
+      write_capture(work / 'scene')
+      run_phase('ddp', phase_ddp, work)
+    finally:
+      shutil.rmtree(work, ignore_errors=True)
+    print(f'total: {time.perf_counter() - total:.2f} s')
+    return 0
   try:
     device_name = run_phase('device', phase_device)
     device = torch.device('cuda', 0)

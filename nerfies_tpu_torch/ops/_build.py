@@ -37,6 +37,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# The cards that `launch_target` gave a launch since the last reset.
+_launch_cards = set()
 
 
 def sources() -> List[str]:
@@ -176,4 +178,14 @@ def launch_target(device: torch.device) -> Tuple[int, int]:
   library's entry points make the card current before they launch."""
   index = (device.index if device.index is not None
            else torch.cuda.current_device())
+  _launch_cards.add(index)
   return index, torch.cuda.current_stream(index).cuda_stream
+
+
+def launch_cards(reset: bool = False) -> List[int]:
+  """The card indices that launches were given (`launch_target`) since
+  the last reset, in order."""
+  cards = sorted(_launch_cards)
+  if reset:
+    _launch_cards.clear()
+  return cards

@@ -940,7 +940,10 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+  """Sets every wrapper's count to 0 and forgets the cards launched on
+  (_build.launch_cards)."""
   from nerfies_tpu_torch.ops import fused_warp
+  _build.launch_cards(reset=True)
   nerf_mlp_forward.launches = 0
   warp_trunk_forward.launches = 0
   nerf_mlp_backward.launches = 0

@@ -107,10 +107,25 @@ def local_batch_slice(global_batch_size: int) -> slice:
   return slice(start, start + per_rank)
 
 
-# Calls, bytes and times of `all_reduce_mean` since the last reset: host
-# seconds on the CPU, CUDA event pairs (read at `collective_stats`) on a
-# card.
-_COLLECTIVES = {'calls': 0, 'bytes': 0, 'seconds': 0.0, 'events': []}
+# Calls, bytes and milliseconds of `all_reduce_mean` since the last
+# reset: host time on the CPU; on a card, CUDA event pairs, each folded
+# into 'ms' once it has completed, so that only the pairs still in flight
+# are kept however long the run.
+_COLLECTIVES = {'calls': 0, 'bytes': 0, 'ms': 0.0, 'pending': []}
+
+
+def _fold_events(wait: bool) -> None:
+  """Adds the time of each completed event pair to 'ms' and drops it;
+  with `wait`, waits for every pair first."""
+  pending = []
+  for start, end in _COLLECTIVES['pending']:
+    if wait:
+      end.synchronize()
+    if wait or end.query():
+      _COLLECTIVES['ms'] += start.elapsed_time(end)
+    else:
+      pending.append((start, end))
+  _COLLECTIVES['pending'] = pending
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -132,11 +147,12 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     start.record()
     dist.all_reduce(flat)
     end.record()
-    _COLLECTIVES['events'].append((start, end))
+    _fold_events(wait=False)
+    _COLLECTIVES['pending'].append((start, end))
   else:
     began = time.perf_counter()
     dist.all_reduce(flat)
-    _COLLECTIVES['seconds'] += time.perf_counter() - began
+    _COLLECTIVES['ms'] += (time.perf_counter() - began) * 1e3
   flat = flat / world
   out, offset = [], 0
   for t in tensors:
@@ -148,14 +164,10 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def collective_stats(reset: bool = False) -> dict:
   """{'calls', 'bytes', 'ms'} of `all_reduce_mean` since the last reset;
   'ms' waits for the card's events to complete."""
-  for _, end in _COLLECTIVES['events']:
-    end.synchronize()
-  ms = _COLLECTIVES['seconds'] * 1e3 + sum(
-      start.elapsed_time(end) for start, end in _COLLECTIVES['events'])
-  out = {'calls': _COLLECTIVES['calls'], 'bytes': _COLLECTIVES['bytes'],
-         'ms': ms}
+  _fold_events(wait=True)
+  out = {key: _COLLECTIVES[key] for key in ('calls', 'bytes', 'ms')}
   if reset:
-    _COLLECTIVES.update(calls=0, bytes=0, seconds=0.0, events=[])
+    _COLLECTIVES.update(calls=0, bytes=0, ms=0.0, pending=[])
   return out
 
 

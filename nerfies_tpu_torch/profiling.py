@@ -58,6 +58,10 @@ OUR_KERNEL_NAMES = ('nerf_mlp_kernel', 'warp_trunk_kernel',
 COLLECTIVE_MARKS = ('nccl',)
 # Chrome-trace categories of device work.
 DEVICE_CATEGORIES = ('kernel', 'gpu_memcpy', 'gpu_memset')
+# As in scripts/profile.py: samples a ray in `layout`, and the calls each
+# timing of `layout` and `dispatch` averages.
+LAYOUT_SAMPLES = 128
+TIMED_CALLS = 20
 
 
 def _sync(device: torch.device) -> None:
@@ -284,9 +288,6 @@ def step_configs(args):
       train_config, batch_size=batch_size, use_elastic_loss=use_elastic,
       elastic_reduce_method=args.elastic if use_elastic else 'weight',
       use_background_loss=args.background)
-  if args.background_points:
-    train_config = dataclasses.replace(
-        train_config, background_points_batch_size=args.background_points)
   return model_config, train_config
 
 
@@ -415,8 +416,8 @@ def run_layout(args) -> Dict[str, float]:
   Forward and backward in bf16 torch.matmul; ms per call of each.
   """
   device = mesh.init(args.device)
-  b, s, width, depth, freqs, meta = (args.batch_size, args.samples, 128, 6,
-                                     6, 8)
+  b, s, width, depth, freqs, meta = (args.batch_size, LAYOUT_SAMPLES, 128,
+                                     6, 6, 8)
   pe_dim = 3 + 2 * freqs * 3
   gen = torch.Generator(device).manual_seed(0)
   pts = torch.randn((b, s, 3), generator=gen, device=device)
@@ -485,10 +486,10 @@ def run_layout(args) -> Dict[str, float]:
     call()
     _sync(device)
     start = time.perf_counter()
-    for _ in range(args.reps):
+    for _ in range(TIMED_CALLS):
       call()
     _sync(device)
-    ms = (time.perf_counter() - start) * 1e3 / args.reps
+    ms = (time.perf_counter() - start) * 1e3 / TIMED_CALLS
     result[name] = ms
     _say(f'{name}: {ms:8.3f} ms  ~{3 * flops_fwd / ms / 1e9:7.2f} TFLOP/s '
          '(forward + backward, estimated)')
@@ -502,7 +503,7 @@ def run_dispatch(args) -> Dict[str, float]:
   launch of an asynchronous chain of `n`, synchronised once."""
   device = mesh.init(args.device)
   x = torch.zeros((8, 128), device=device)
-  n = args.reps
+  n = TIMED_CALLS
 
   def fetch(t):
     return t[0, 0].item()  # a copy back, as scripts/profile.py's device_get
@@ -554,9 +555,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                       default='weight')
   p_step.add_argument('--background', action=argparse.BooleanOptionalAction,
                       default=True)
-  p_step.add_argument('--background_points', type=int, default=0,
-                      help='background points a step (0: the bench\'s '
-                      '16,384)')
   p_step.add_argument('--bfloat16', action=argparse.BooleanOptionalAction,
                       default=True)
   p_step.add_argument('--warp_kwargs', default='',
@@ -578,13 +576,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p_render.add_argument('--device', default='cuda', help=device_help)
 
   p_dispatch = sub.add_parser('dispatch')
-  p_dispatch.add_argument('--reps', type=int, default=20)
   p_dispatch.add_argument('--device', default='cuda', help=device_help)
 
   p_layout = sub.add_parser('layout')
   p_layout.add_argument('--batch_size', type=int, default=6144)
-  p_layout.add_argument('--samples', type=int, default=128)
-  p_layout.add_argument('--reps', type=int, default=20)
   p_layout.add_argument('--device', default='cuda', help=device_help)
 
   p_trace = sub.add_parser('trace')

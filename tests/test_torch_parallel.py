@@ -314,6 +314,39 @@ def test_rank_rows_draw_the_global_rows():
     assert torch.equal(got, full[4 * r:4 * (r + 1)])
 
 
+class _Event:
+  """A stand-in for a torch.cuda.Event of all_reduce_mean's pairs."""
+
+  def __init__(self, done=True, ms=0.0):
+    self.done, self.ms, self.waited = done, ms, False
+
+  def query(self):
+    return self.done
+
+  def synchronize(self):
+    self.waited = self.done = True
+
+  def elapsed_time(self, end):
+    return end.ms
+
+
+def test_collective_times_fold_as_their_events_complete(monkeypatch):
+  """Each completed all-reduce event pair is added to the running sum
+  and dropped, so a run of any length keeps only the pairs in flight;
+  collective_stats waits for those."""
+  done, running = (_Event(), _Event(True, 1.5)), (_Event(), _Event(False, 2.0))
+  monkeypatch.setattr(mesh, '_COLLECTIVES', {
+      'calls': 2, 'bytes': 8, 'ms': 0.25, 'pending': [done, running]})
+  mesh._fold_events(wait=False)
+  assert mesh._COLLECTIVES['pending'] == [running]
+  assert mesh._COLLECTIVES['ms'] == 1.75
+  assert mesh.collective_stats(reset=True) == {'calls': 2, 'bytes': 8,
+                                               'ms': 3.75}
+  assert running[1].waited
+  assert mesh._COLLECTIVES == {'calls': 0, 'bytes': 0, 'ms': 0.0,
+                               'pending': []}
+
+
 # --------------------------------------------------------------- 2 ranks
 
 
@@ -517,3 +550,25 @@ def test_each_launch_names_its_tensors_card(monkeypatch):
     source = (REPO / 'nerfies_tpu_torch' / 'ops' / name).read_text()
     assert 'current_stream' not in source and 'index or 0' not in source
     assert source.count('_build.launch_target(') >= 2, name
+
+
+def test_launch_cards_are_kept_until_the_counts_reset(monkeypatch):
+  """_build.launch_cards lists the cards launch_target gave a launch,
+  which is what the ddp children report for each rank; resetting the
+  launch counts forgets them."""
+  from nerfies_tpu_torch.ops import _build
+  from nerfies_tpu_torch.ops import fused_mlp
+
+  class Stream:
+    cuda_stream = 0xbeef
+
+  monkeypatch.setattr(torch.cuda, 'current_stream', lambda index: Stream())
+  monkeypatch.setattr(torch.cuda, 'current_device', lambda: 1)
+  fused_mlp.reset_launch_counts()
+  assert _build.launch_cards() == []
+  for device in (torch.device('cuda', 3), torch.device('cuda'),
+                 torch.device('cuda', 3)):
+    _build.launch_target(device)
+  assert _build.launch_cards() == [1, 3]
+  fused_mlp.reset_launch_counts()
+  assert _build.launch_cards() == []

@@ -6,15 +6,29 @@ the unprofiled median; without a card and without --device cpu the tool
 raises, as every entry point of the port does.
 """
 
+import dataclasses
 import json
 
 import pytest
 import torch
 
+from nerfies_tpu_torch import configs
 from nerfies_tpu_torch import profiling
 
-STEP = ['step', '--device', 'cpu', '--batch_size', '8', '--steps', '2',
-        '--background_points', '16']
+STEP = ['step', '--device', 'cpu', '--batch_size', '8', '--steps', '2']
+
+
+@pytest.fixture
+def few_background_points(monkeypatch):
+  """The bench workload with 16 background points a step, not 16,384."""
+  bench_train_config = configs.bench_train_config
+
+  def narrowed():
+    model_config, train_config = bench_train_config()
+    return model_config, dataclasses.replace(
+        train_config, background_points_batch_size=16)
+
+  monkeypatch.setattr(configs, 'bench_train_config', narrowed)
 
 
 def test_idle_share_is_against_the_unprofiled_step():
@@ -26,7 +40,8 @@ def test_idle_share_is_against_the_unprofiled_step():
   assert profiling.idle_share(prof.busy_ms, 150.0) == pytest.approx(0.4)
 
 
-def test_step_prints_the_median_and_the_profiled_step(capsys, tmp_path):
+def test_step_prints_the_median_and_the_profiled_step(
+    capsys, tmp_path, few_background_points):
   result = profiling.main(STEP + ['--trace_dir', str(tmp_path)])
   out = capsys.readouterr().out
   assert 'unprofiled steps: median' in out
@@ -47,7 +62,7 @@ def test_step_prints_the_median_and_the_profiled_step(capsys, tmp_path):
 
 @pytest.mark.parametrize('flags', [['--no-fused', '--elastic', 'median'],
                                    ['--elastic', 'off', '--no-background']])
-def test_step_variants(capsys, flags):
+def test_step_variants(capsys, flags, few_background_points):
   result = profiling.main(STEP + flags)
   assert result['median_ms'] > 0
   assert 'route' in capsys.readouterr().out
@@ -75,17 +90,19 @@ def test_render_prints_its_throughput(capsys, tmp_path):
   assert (tmp_path / 'render_rank0.json').is_file()
 
 
-def test_layout_times_the_three_formulations(capsys):
-  result = profiling.main(['layout', '--device', 'cpu', '--batch_size', '2',
-                           '--samples', '4', '--reps', '2'])
+def test_layout_times_the_three_formulations(capsys, monkeypatch):
+  monkeypatch.setattr(profiling, 'LAYOUT_SAMPLES', 4)
+  monkeypatch.setattr(profiling, 'TIMED_CALLS', 2)
+  result = profiling.main(['layout', '--device', 'cpu', '--batch_size', '2'])
   assert len(result) == 3 and all(ms > 0 for ms in result.values())
   out = capsys.readouterr().out
   for name in ('v0', 'v1', 'v2'):
     assert name in out
 
 
-def test_dispatch_prints_both_times(capsys):
-  result = profiling.main(['dispatch', '--device', 'cpu', '--reps', '3'])
+def test_dispatch_prints_both_times(capsys, monkeypatch):
+  monkeypatch.setattr(profiling, 'TIMED_CALLS', 3)
+  result = profiling.main(['dispatch', '--device', 'cpu'])
   assert set(result) == {'sync_ms', 'chain_ms'}
   out = capsys.readouterr().out
   assert 'round trip' in out and 'async chain of 3' in out
