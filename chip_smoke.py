@@ -118,21 +118,21 @@ non-zero exit at the first phase that fails:
            wall and device-busy ms, idle share, device ops, largest ops.
   ddp      the CLIs under `python -m torch.distributed.run --standalone
            --nproc_per_node=<torch.cuda.device_count()>` (NCCL, one process
-           per card, each on cuda:{LOCAL_RANK}; world size 1 on a machine
-           of one card), each rank running `chip_smoke.py --ddp_child`,
-           which writes its launch counts, the cards its launches were
-           given, numbers and loaded JAX modules (none may be) to a
-           report; rank r must launch on card r only. The training CLI on the cli phase's
-           capture with configs/tpu_vrig_paper.gin for 3 steps, resumed to
-           5, held against the same runs in this process: at world size 1
-           params and stats bit-identical, at N > 1 stats at rtol 0.05,
-           atol 5e-4. configs/gpu_quarterhd_4gpu.gin (made for 4 devices,
-           the plain route) for 3 steps: step ms, rays/s, peak memory a
-           rank, the all-reduce's calls, bytes and ms a step. The eval CLI
-           on step 5's checkpoint, one val frame: at world size 1 equal bit
-           for bit to the frame rendered in this process, at N > 1 within
-           atol 0.02, rtol 0.05. Every kernel must launch in the children
-           (their counts are the kernels line's `ddp` launches).
+           per card, each on cuda:{LOCAL_RANK}; world size 1 on a machine of
+           one card), each rank running `chip_smoke.py --ddp_child`, which
+           writes its launch counts, the cards its launches were given,
+           numbers and loaded JAX modules (none may be) to a report; rank r
+           must launch on card r only. The training CLI on the cli phase's
+           capture with configs/tpu_vrig_paper.gin for 3 steps, resumed to 5,
+           held against the same runs in this process: at world size 1 params
+           and stats bit-identical, at N > 1 stats at rtol 0.05, atol 5e-4.
+           configs/gpu_quarterhd_4gpu.gin (made for 4 devices, the plain
+           route) for 3 steps: step ms, rays/s, peak memory a rank, the
+           all-reduce's calls, bytes and ms a step. The eval CLI on step 5's
+           checkpoint, one val frame: at world size 1 equal bit for bit to the
+           frame rendered in this process, at N > 1 within atol 0.02, rtol
+           0.05. Every kernel must launch in the children (their counts are
+           the kernels line's `ddp` launches).
   profile  `nerfies_tpu_torch.profiling step` on the bench workload (fused
            route, 5 unprofiled steps, one profiled): device ms by op for
            every op, the idle share against the unprofiled median; its
