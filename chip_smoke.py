@@ -116,6 +116,41 @@ non-zero exit at the first phase that fails:
            the culled path's warp at 262,144 and 655,360). A frame is
            profiled unculled and culled, and culled at 8 times the chunk:
            wall and device-busy ms, idle share, device ops, largest ops.
+  capture  render 12 frames of 480x272 of the synthetic sphere on an orbit,
+           save them as PNGs and write their COLMAP binary model (4,096
+           points, each seen by 2 frames) with the port's SceneManager;
+           run nerfies_tpu_torch.process_capture.main on them with the JAX
+           CLI's defaults (blur keep 95, scales 1/2/4/8, val 0.2) and 6
+           orbit frames; train the dataset with the training CLI on
+           configs/tpu_vrig_paper.gin at full width (image scale 1) for 3
+           steps; render its orbit-mild path with render_video. Require
+           fewer frames kept than written, every pyramid level written,
+           finite stats, the launches of the train phase per step, 6 PNG
+           frames and the serving launches of 6 unculled frames (counts
+           set to 0 just before each run and read just after). Print the
+           processing seconds and the blur keep count.
+  quality  nerfies_tpu_torch.quality_bench.main at the bench width (batch
+           6144, 128 + 128 samples, fused) on its textured scene with 8
+           train frames of 384x288: 20 steps, an eval every 10, the params
+           saved. Require 2 finite curve rows, render_delta > 0 on the
+           second, and per step NeRF forward 2, NeRF backward 2, warp
+           forward 3 and warp backward 3 plus the serving launches of the
+           4 eval renders (counts set to 0 just before the run, read just
+           after). Print the median step ms and rays/s and the curve.
+  serve_bench  nerfies_tpu_torch.serve_bench.main on those params with
+           --measure_1080p (a 128^3 bake over the points' box and margin;
+           full, preset 32 + 64, and both culled modes, each on the val
+           view and a 1920x1080 orbit frame). Require 4 rows of finite
+           numbers, launches of both serving kernels and none of a
+           training kernel, and the full mode's val PSNR within
+           SERVE_PSNR_ATOL dB of the quality curve's last (the same
+           model, saved and loaded). Record every row count the run gave
+           each serving kernel (each mode's two levels at the val chunk
+           and the 1080p chunk, the bake; a last chunk is padded to the
+           chunk's size) and hold both kernels at each against their
+           plain versions, timed, on the npz's model. Print each mode's rays/s, its 1080p seconds and the
+           occupied share; the PSNR of a 20-step fit is never held to a
+           floor.
   ddp      the CLIs under `python -m torch.distributed.run --standalone
            --nproc_per_node=<torch.cuda.device_count()>` (NCCL, one process
            per card, each on cuda:{LOCAL_RANK}; world size 1 on a machine of
@@ -166,6 +201,7 @@ import time
 import numpy as np
 import torch
 
+from nerfies_tpu_torch import capture
 from nerfies_tpu_torch import checkpoints
 from nerfies_tpu_torch import configs
 from nerfies_tpu_torch import datasets
@@ -173,14 +209,23 @@ from nerfies_tpu_torch import eval as eval_cli
 from nerfies_tpu_torch import evaluation
 from nerfies_tpu_torch import fast_render
 from nerfies_tpu_torch import image_utils
+from nerfies_tpu_torch import interop
 from nerfies_tpu_torch import lpips
 from nerfies_tpu_torch import occupancy
+from nerfies_tpu_torch import process_capture
 from nerfies_tpu_torch import profiling
+from nerfies_tpu_torch import quality_bench
 from nerfies_tpu_torch import render_video
 from nerfies_tpu_torch import resolve_device
 from nerfies_tpu_torch import schedules
+from nerfies_tpu_torch import serve_bench
 from nerfies_tpu_torch import train as train_cli
 from nerfies_tpu_torch import training
+from nerfies_tpu_torch import utils
+from nerfies_tpu_torch.colmap import ColmapCamera
+from nerfies_tpu_torch.colmap import Image
+from nerfies_tpu_torch.colmap import Quaternion
+from nerfies_tpu_torch.colmap import SceneManager
 from nerfies_tpu_torch.datasets import core
 from nerfies_tpu_torch.datasets import synthetic
 from nerfies_tpu_torch.models import modules
@@ -275,6 +320,22 @@ KERNEL_SOURCES = {
     'warp_mlp_backward': ('nerfies_tpu_torch/csrc/fused_warp_bwd.cu',
                           'nerfies_tpu/ops/fused_warp.py:207'),
 }
+# The capture phase: CAPTURE_FRAMES synthetic frames of CLI_IMAGE_SIZE on
+# an orbit and their COLMAP model (CAPTURE_POINTS points, each seen by 2
+# frames) through process_capture with the JAX CLI's defaults and
+# CAPTURE_ORBIT_FRAMES orbit frames; CAPTURE_STEPS steps of the training
+# CLI on CLI_GIN; the orbit-mild path rendered.
+CAPTURE_FRAMES = 12
+CAPTURE_POINTS = 4096
+CAPTURE_ORBIT_FRAMES = 6
+CAPTURE_STEPS = 3
+# The quality phase: quality_bench at the bench width on its textured
+# scene (8 train frames of 384x288), QUALITY_STEPS steps, an eval every
+# QUALITY_EVAL_EVERY; the serve_bench phase serves the params it saves.
+QUALITY_STEPS, QUALITY_EVAL_EVERY = 20, 10
+QUALITY_ARGV = ('--num_train', '8', '--image_size', '384', '288')
+# The curve rounds PSNR to 5 places, serve_bench to 3.
+SERVE_PSNR_ATOL = 2e-3
 # The ddp phase: the CLIs under torchrun, one process per card of the
 # machine, NCCL. The training CLI on CLI_GIN for DDP_FIRST_STEPS steps,
 # resumed to DDP_LAST_STEP, against the same runs without torchrun;
@@ -1200,11 +1261,11 @@ def phase_model(seed, rays, device=torch.device('cuda', 0)):
   flat = _flat_rays(rays, MODEL_RAYS)
   fused_mlp.reset_launch_counts()
   with torch.no_grad():
-    got = model(params, evaluation._to_device(flat, device), WARP_EXTRA)
+    got = model(params, utils.to_device(flat, device), WARP_EXTRA)
     torch.cuda.synchronize()
     _check_no_launches('the plain forward', fused_mlp.launch_counts())
     want = model(_tree_to(params, 'cpu'),
-                 evaluation._to_device(flat, torch.device('cpu')),
+                 utils.to_device(flat, torch.device('cpu')),
                  WARP_EXTRA)
   _compare('f32 card vs cpu', got, want, ('rgb', 'depth', 'acc'),
            MODEL_ATOL, MODEL_RTOL)
@@ -1219,7 +1280,7 @@ def phase_model(seed, rays, device=torch.device('cuda', 0)):
       dataclasses.replace(config, use_bfloat16=True),
       **configs.BENCH_RENDER_IDS,
       generator=torch.Generator().manual_seed(seed), device=device)
-  rays_dev = evaluation._to_device(flat, device)
+  rays_dev = utils.to_device(flat, device)
   with torch.no_grad():
     plain = model16(params16, rays_dev, WARP_EXTRA)
   fused = fast_render.render_rays(params16, rays_dev, WARP_EXTRA, model16)
@@ -1711,6 +1772,280 @@ def phase_eval(work, device_name, device=torch.device('cuda', 0)):
   return counts, cases
 
 
+def _render_launches(frames, num_rays, chunk=CHUNK):
+  """Launches of each serving kernel for `frames` unculled renders of
+  `num_rays` rays: one a chunk at each of the two levels."""
+  return frames * 2 * -(-num_rays // chunk)
+
+
+def write_colmap_capture(frames_dir, model_dir, count, image_size):
+  """`count` frames of the synthetic sphere on an orbit, as PNGs, and
+  their COLMAP model (binary), written with the port's SceneManager."""
+  frames_dir.mkdir(parents=True)
+  scene = SceneManager(model_dir)
+  width, height = image_size
+  focal = 60.0 / 64.0 * width  # synthetic.make_orbit_camera's
+  scene.cameras[1] = ColmapCamera(
+      1, 'OPENCV', width, height,
+      [focal, focal, width / 2, height / 2, 0, 0, 0, 0])
+  rng = np.random.RandomState(0)
+  for i in range(count):
+    cam = synthetic.make_orbit_camera(2 * np.pi * i / count,
+                                      image_size=image_size)
+    name = f'{i:04d}'
+    image_utils.save_image(
+        frames_dir / f'{name}.png',
+        image_utils.image_to_uint8(synthetic.render_sphere_image(cam)))
+    # A COLMAP pose is world-to-camera: R = orientation, t = -R position.
+    scene.images[i + 1] = Image(
+        i + 1, f'{name}.png', 1,
+        Quaternion.from_rotation_matrix(cam.orientation).q,
+        -cam.orientation @ cam.position,
+        points2D=rng.uniform(0, height, (4, 2)),
+        point3D_ids=np.arange(1, 5, dtype=np.int64))
+  scene.name_to_image_id = {im.name: i for i, im in scene.images.items()}
+  ids = list(range(1, CAPTURE_POINTS + 1))
+  tracks = [[(1 + j % count, 0), (1 + (j + 1) % count, 1)]
+            for j in range(CAPTURE_POINTS)]
+  scene._set_points(ids, rng.uniform(-0.6, 0.6, (CAPTURE_POINTS, 3)),
+                    rng.randint(0, 255, (CAPTURE_POINTS, 3)),
+                    rng.uniform(0, 1, CAPTURE_POINTS), tracks)
+  scene.save(model_dir)
+
+
+def phase_capture(work, device=torch.device('cuda', 0)):
+  """A capture through the port's ingestion, then trained and rendered:
+  frames and a COLMAP model -> process_capture -> the training CLI ->
+  render_video. Returns the launches of the training and the render."""
+  card = card_label()
+  base = work / 'capture'
+  frames_dir, model_dir, dataset = (base / 'frames', base / 'model',
+                                    base / 'dataset')
+  write_colmap_capture(frames_dir, model_dir, CAPTURE_FRAMES,
+                       CLI_IMAGE_SIZE)
+  start = time.perf_counter()
+  process_capture.main(['--colmap_dir', str(model_dir), '--images_dir',
+                        str(frames_dir), '--output_dir', str(dataset),
+                        '--orbit_frames', str(CAPTURE_ORBIT_FRAMES)])
+  process_s = time.perf_counter() - start
+  ids = json.loads((dataset / 'dataset.json').read_text())
+  kept = len(ids['ids'])
+  check(kept < CAPTURE_FRAMES, f'blur keep 95 kept {kept} of '
+        f'{CAPTURE_FRAMES} frames')
+  for scale in (1, 2, 4, 8):
+    check(len(list((dataset / 'rgb' / f'{scale}x').glob('*.png'))) == kept,
+          f'rgb/{scale}x does not hold {kept} frames')
+  paths = sorted((dataset / 'camera-paths' / 'orbit-mild').glob('*.json'))
+  check(len(paths) == CAPTURE_ORBIT_FRAMES,
+        f'{len(paths)} orbit-mild cameras, not {CAPTURE_ORBIT_FRAMES}')
+  print(f'  [{card}] process_capture: {process_s:.2f} s for '
+        f'{CAPTURE_FRAMES} frames of {CLI_IMAGE_SIZE[0]}x{CLI_IMAGE_SIZE[1]}'
+        f', blur keep 95 kept {kept} ({len(ids["train_ids"])} train, '
+        f'{len(ids["val_ids"])} val), scales 1/2/4/8')
+
+  exp = base / 'exp'
+  argv = ['--base_folder', str(exp), '--data_dir', str(dataset),
+          '--gin_configs', CLI_GIN, '--device', str(device)]
+  for binding in ('ExperimentConfig.image_scale = 1',
+                  f'TrainConfig.max_steps = {CAPTURE_STEPS}',
+                  f'TrainConfig.save_every = {CAPTURE_STEPS}',
+                  'TrainConfig.print_every = 1',
+                  'TrainConfig.log_every = 1000000',
+                  'TrainConfig.histogram_every = 1000000'):
+    argv += ['--gin_bindings', binding]
+  fused_mlp.reset_launch_counts()
+  result = train_cli.main(argv)
+  train_counts = fused_mlp.launch_counts()
+  check(result.state.step == CAPTURE_STEPS,
+        f'trained to step {result.state.step}')
+  for key, value in _flat_tree(result.stats):
+    check(np.isfinite(value), f'capture stat {key} is {value}')
+  for name, want in TRAIN_STEP_LAUNCHES.items():
+    check(train_counts[name] == want * CAPTURE_STEPS,
+          f'{name}: {train_counts[name]} launches in {CAPTURE_STEPS} steps, '
+          f'expected {want * CAPTURE_STEPS}')
+  step_s = result.time_tracker.values('train_step')
+  print(f'  [{card}] trained {CAPTURE_STEPS} steps: train_step '
+        f'{[round(v * 1e3, 2) for v in step_s]} ms; stats of the last: '
+        + ', '.join(f'{k} {v:.5g}' for k, v in _flat_tree(result.stats)))
+
+  fused_mlp.reset_launch_counts()
+  start = time.perf_counter()
+  frames = render_video.main(
+      ['--base_folder', str(exp), '--data_dir', str(dataset),
+       '--gin_configs', CLI_GIN, '--gin_bindings',
+       'ExperimentConfig.image_scale = 1', '--camera_path', 'orbit-mild',
+       '--chunk', str(CHUNK), '--output_dir', str(base / 'video'),
+       '--device', str(device)])
+  render_s = time.perf_counter() - start
+  render_counts = fused_mlp.launch_counts()
+  check(len(frames) == CAPTURE_ORBIT_FRAMES,
+        f'render_video wrote {len(frames)} frames, not '
+        f'{CAPTURE_ORBIT_FRAMES}')
+  for path in frames:
+    image = image_utils.load_image(path)
+    check(image.shape == (CLI_IMAGE_SIZE[1], CLI_IMAGE_SIZE[0], 3),
+          f'{path.name}: shape {image.shape}')
+  per_kernel = _render_launches(len(frames),
+                                CLI_IMAGE_SIZE[0] * CLI_IMAGE_SIZE[1])
+  want = {name: 0 for name in render_counts}
+  want.update(nerf_mlp_forward=per_kernel, warp_trunk_forward=per_kernel)
+  check(render_counts == want,
+        f'render_video launches {render_counts}, expected {want}')
+  print(f'  [{card}] render_video orbit-mild: {len(frames)} PNG frames in '
+        f'{render_s:.2f} s; launches {render_counts}')
+  return {name: train_counts[name] + render_counts[name]
+          for name in train_counts}
+
+
+def phase_quality(work, device=torch.device('cuda', 0)):
+  """quality_bench at the bench width on its scene; saves the params for
+  the serve_bench phase. Returns the launches of the run."""
+  card = card_label()
+  base = work / 'quality'
+  argv = ['--steps', str(QUALITY_STEPS), '--eval_every',
+          str(QUALITY_EVAL_EVERY), *QUALITY_ARGV,
+          '--scene_dir', str(base / 'scene'), '--work_dir',
+          str(base / 'work'), '--out', str(base / 'curve.json'),
+          '--save_params', str(base / 'params.npz'), '--device', str(device)]
+  args = quality_bench.parse_args(argv)
+  quality_bench.write_scene(args)  # outside the counts and the times
+  fused_mlp.reset_launch_counts()
+  run = quality_bench.main(argv)
+  counts = fused_mlp.launch_counts()
+  curve = run.result['curve']
+  check([row['step'] for row in curve]
+        == list(range(QUALITY_EVAL_EVERY, QUALITY_STEPS + 1,
+                      QUALITY_EVAL_EVERY)),
+        f'curve steps {[row["step"] for row in curve]}')
+  for row in curve:
+    for key, value in row.items():
+      if key == 'render_delta' and row is curve[0]:
+        check(value is None, f'render_delta {value} on the first eval')
+      else:
+        check(value is not None and np.isfinite(value),
+              f'curve step {row["step"]}: {key} {value}')
+  check(curve[-1]['render_delta'] > 0,
+        f'render_delta {curve[-1]["render_delta"]} on the last eval')
+  check((base / 'params.npz').is_file(), 'no params.npz saved')
+  width, height = args.image_size
+  renders = _render_launches(2 * len(curve), width * height)
+  want = {name: QUALITY_STEPS * per_step
+          for name, per_step in TRAIN_STEP_LAUNCHES.items()}
+  want['nerf_mlp_forward'] += renders
+  want['warp_trunk_forward'] += renders
+  print(f'  launches in {QUALITY_STEPS} steps and {len(curve)} evals: '
+        f'{counts}, expected {want}')
+  check(counts == want, f'launches {counts}, expected {want}')
+  step_ms = float(np.median(run.step_seconds[1:])) * 1e3
+  batch = args.batch_size
+  print(f'  [{card}] quality_bench step median {step_ms:.2f} ms over '
+        f'{len(run.step_seconds) - 1} steps after the first '
+        f'({run.step_seconds[0] * 1e3:.1f} ms), {batch / step_ms * 1e3:.1f} '
+        'rays/s')
+  for row in curve:
+    print(f'  [{card}] curve: {json.dumps(row)}')
+  return counts
+
+
+@contextlib.contextmanager
+def _recording_rows(seen):
+  """Adds (rows, with a row bias) of each call of a serving wrapper to
+  seen[name] while the block runs.
+
+  A stand-in takes each wrapper's name in fused_mlp. A wrapper counts a
+  launch on the function its module name holds, so the stand-in carries
+  the count while it is in place and hands it back after.
+  """
+  originals = {name: getattr(fused_mlp, name) for name in SERVE_KERNELS}
+
+  def recorder(name, fn):
+    def call(x, row_bias, *args, **kwargs):
+      seen.setdefault(name, set()).add((x.shape[0], bool(row_bias is not None
+                                                         and len(row_bias))))
+      return fn(x, row_bias, *args, **kwargs)
+    call.launches = fn.launches
+    return call
+
+  for name, fn in originals.items():
+    setattr(fused_mlp, name, recorder(name, fn))
+  try:
+    yield seen
+  finally:
+    for name, fn in originals.items():
+      fn.launches = getattr(fused_mlp, name).launches
+      setattr(fused_mlp, name, fn)
+
+
+def phase_serve_bench(work, device_name, device=torch.device('cuda', 0)):
+  """serve_bench on the quality phase's params, 1080p frames measured.
+  Returns the launches of the run and the serving kernels' cases at every
+  row count the run gave them."""
+  card = card_label()
+  base = work / 'quality'
+  seen = {}
+  fused_mlp.reset_launch_counts()
+  with _recording_rows(seen):
+    run = serve_bench.main(['--params', str(base / 'params.npz'),
+                            '--scene_dir', str(base / 'scene'), '--out',
+                            str(base / 'serve.json'), '--device',
+                            str(device)])
+  counts = fused_mlp.launch_counts()
+  modes = run.result['modes']
+  check([row['mode'] for row in modes] == [m[0] for m in serve_bench.MODES],
+        f'modes {[row["mode"] for row in modes]}')
+  for row in modes:
+    for key in ('rays_per_sec', 'psnr', 'ms_ssim', 'measured_1080p_s',
+                'hd_rays_per_sec'):
+      check(row.get(key) is not None and np.isfinite(row[key]),
+            f'{row["mode"]}: {key} = {row.get(key)}')
+  print(f'  launches: {counts}')
+  for name in SERVE_KERNELS:
+    check(counts[name] > 0, f'{name} was not launched')
+  for name in set(TRAIN_KERNELS) - set(SERVE_KERNELS):
+    check(counts[name] == 0, f'{name} launched {counts[name]} times')
+  grid = run.result['grid']
+  print(f'  [{card}] occupancy bake at {grid["resolution"]}^3: '
+        f'{run.bake_seconds:.3f} s, {grid["occupied_fraction"]:.4f} '
+        'occupied')
+  for row in modes:
+    print(f"  [{card}] {row['mode']}: {row['rays_per_sec']:.1f} rays/s, "
+          f"1080p {row['measured_1080p_s']:.3f} s "
+          f"({row['hd_rays_per_sec']:.1f} rays/s); PSNR {row['psnr']:.3f}, "
+          f"MS-SSIM {row['ms_ssim']:.4f} (a {QUALITY_STEPS}-step fit)")
+  # The full mode renders the quality phase's last eval view with the
+  # saved and loaded params: the same PSNR.
+  curve = json.loads((base / 'curve.json').read_text())['curve']
+  full_psnr, trained_psnr = modes[0]['psnr'], curve[-1]['val_psnr']
+  print(f'  full mode val PSNR {full_psnr} against the quality curve\'s '
+        f'{trained_psnr}')
+  check(abs(full_psnr - trained_psnr) <= SERVE_PSNR_ATOL,
+        f'full mode PSNR {full_psnr}, quality curve {trained_psnr}')
+
+  # Both serving kernels at every row count of the run, on its model.
+  tree, _, _ = serve_bench.load_params(base / 'params.npz')
+  source = datasets.from_config(
+      {'type': 'nerfies', 'data_dir': str(base / 'scene')}, image_scale=1,
+      use_appearance_id=True, use_camera_id=True, use_warp_id=True)
+  model = nerf.NerfModel(
+      quality_bench.model_config(), interop.params_from_jax(tree, device),
+      source.near, source.far, source.appearance_ids, source.camera_ids,
+      source.warp_ids)
+  nerf_rows = sorted(seen['nerf_mlp_forward'])
+  warp_rows = sorted(n for n, _ in seen['warp_trunk_forward'])
+  print(f'  row counts of the run: nerf_mlp_forward {nerf_rows}, '
+        f'warp_trunk_forward {warp_rows}')
+  cases = {}
+  with torch.no_grad():
+    for case in _kernel_cases(
+        model, device, torch.Generator(device).manual_seed(4),
+        nerf_rows=nerf_rows, warp_rows=warp_rows):
+      numbers = _run_case(case, device_name)
+      cases.setdefault(case['name'], []).append(
+          dict(rows=case['rows'], with_bias=case['with_bias'], **numbers))
+  return counts, cases
+
+
 def _forbidden_loaded():
   return sorted({name.split('.')[0] for name in sys.modules}
                 & set(FORBIDDEN_MODULES))
@@ -2075,6 +2410,10 @@ def main(argv=None):
                                  train_numbers['step_ms'], work)
     eval_counts, eval_cases = run_phase('eval', phase_eval, work,
                                         device_name)
+    capture_counts = run_phase('capture', phase_capture, work)
+    quality_counts = run_phase('quality', phase_quality, work)
+    serve_bench_counts, serve_bench_cases = run_phase(
+        'serve_bench', phase_serve_bench, work, device_name)
     ddp_counts = run_phase('ddp', phase_ddp, work)
     run_phase('profile', phase_profile, device)
   except Exception as e:  # report the failing phase, then fail the run
@@ -2091,8 +2430,11 @@ def main(argv=None):
                'cli': cli_counts.get(name, 0),
                'cli_plain': cli_plain_counts.get(name, 0),
                'eval': eval_counts.get(name, 0),
+               'capture': capture_counts.get(name, 0),
+               'quality': quality_counts.get(name, 0),
+               'serve_bench': serve_bench_counts.get(name, 0),
                'ddp': ddp_counts.get(name, 0)}
-    for case in eval_cases.get(name, []):
+    for case in eval_cases.get(name, []) + serve_bench_cases.get(name, []):
       k['max_abs_err'] = max(k['max_abs_err'], case['max_abs_err'])
     lines.append({
         'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
@@ -2106,9 +2448,11 @@ def main(argv=None):
                                    'fine_rows', 'fine_ms', 'fine_rows_ms',
                                    'fine_library_ms', 'fine_bound_ms')
            if key in k},
-        'eval_cases': [{key: case[key] for key in (
+        **{f'{path}_cases': [{key: case[key] for key in (
             'rows', 'with_bias', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
-            'bound_by')} for case in eval_cases.get(name, [])]})
+            'bound_by')} for case in path_cases.get(name, [])]
+           for path, path_cases in (('eval', eval_cases),
+                                    ('serve_bench', serve_bench_cases))}})
   print(f'total: {time.perf_counter() - total:.2f} s '
         f'(build {build_seconds:.2f} s)')
   print(json.dumps({'kernels': lines}))

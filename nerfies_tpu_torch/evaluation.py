@@ -43,21 +43,6 @@ class RenderState:
     return {'alpha': self.warp_alpha, 'time_alpha': self.time_alpha}
 
 
-def _to_device(rays: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-  """Numpy or torch ray arrays -> tensors on `device`; ids become int64."""
-  out = {}
-  for key, value in rays.items():
-    if isinstance(value, dict):
-      out[key] = _to_device(value, device)
-      continue
-    t = value if isinstance(value, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(value).astype(
-            np.int64 if np.issubdtype(np.asarray(value).dtype, np.integer)
-            else np.float32))
-    out[key] = t.to(device, non_blocking=True)
-  return out
-
-
 def make_render_fn(model, use_warp: bool = True, device='cuda',
                    fast: str = 'auto', occupancy=None,
                    keep_samples=None) -> Callable:
@@ -85,7 +70,7 @@ def make_render_fn(model, use_warp: bool = True, device='cuda',
               and fast_render.supported(model))
 
   def render_fn(params, rays_dict, warp_extra, generator=None):
-    rays = _to_device(rays_dict, device)
+    rays = utils.to_device(rays_dict, device)
     if use_fast:
       return fast_render.render_rays(params, rays, warp_extra, model,
                                      use_warp=use_warp, occupancy=occupancy,

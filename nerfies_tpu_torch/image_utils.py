@@ -4,8 +4,9 @@ Port of nerfies_tpu/image_utils.py without OpenCV. The results are those
 of the JAX module, whose IO and resizes are cv2's:
 
   - PNG files are encoded and decoded here with zlib and numpy: 8- and
-    16-bit samples (big-endian on disk) in gray, gray+alpha, RGB and RGBA,
-    all five row filters. Interlaced, palette and sub-byte PNGs raise
+    16-bit samples (big-endian on disk) in gray, gray+alpha, RGB and RGBA.
+    The encoder writes the bytes cv2 writes; the decoder reads all five
+    row filters. Interlaced, palette and sub-byte PNGs raise
     ValueError. In memory the channels are RGB(A), as `load_image` returns
     them in the JAX package; gray+alpha decodes to RGBA with the gray
     value repeated, as cv2's IMREAD_UNCHANGED gives it.
@@ -143,35 +144,14 @@ def decode_png(data: bytes) -> np.ndarray:
   return pixels.reshape(height, width, channels)
 
 
-def _filter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
-  """Each row prefixed by its filter type, chosen per row as libpng does
-  (the least sum of |signed byte|) among all five."""
-  x = rows.astype(np.int32)
-  a = np.zeros_like(x)
-  a[:, bpp:] = x[:, :-bpp]
-  b = np.zeros_like(x)
-  b[1:] = x[:-1]
-  c = np.zeros_like(x)
-  c[1:, bpp:] = x[:-1, :-bpp]
-  candidates = np.stack([x, x - a, x - b, x - ((a + b) >> 1),
-                         x - _paeth(a, b, c)]) & 0xFF
-  signed = np.where(candidates > 127, 256 - candidates, candidates)
-  kind = np.argmin(signed.sum(axis=-1), axis=0)
-  chosen = candidates[kind, np.arange(rows.shape[0])].astype(np.uint8)
-  return np.concatenate([kind.astype(np.uint8)[:, None], chosen], axis=1)
-
-
 def _chunk(kind: bytes, body: bytes) -> bytes:
   return (struct.pack('>I', len(body)) + kind + body
           + struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def encode_png(image: np.ndarray, level: int = 6) -> bytes:
-  """(H, W) or (H, W, 1-4) uint8 / uint16 samples -> PNG bytes.
-
-  The channels are written in the order given: gray, gray+alpha, RGB or
-  RGBA.
-  """
+def _png_rows(image: np.ndarray):
+  """(H, W) or (H, W, 1-4) uint8 / uint16 samples -> (IHDR body, raw rows
+  as (H, row bytes) uint8, bytes per pixel)."""
   if image.dtype not in (np.uint8, np.uint16):
     raise ValueError(f'PNG samples must be uint8 or uint16, not '
                      f'{image.dtype}')
@@ -184,12 +164,43 @@ def encode_png(image: np.ndarray, level: int = 6) -> bytes:
   samples = np.ascontiguousarray(image.astype(image.dtype.newbyteorder('>'))
                                  if depth == 16 else image)
   rows = samples.view(np.uint8).reshape(height, width * channels * depth // 8)
-  body = _filter_rows(rows, channels * depth // 8).tobytes()
   header = struct.pack('>IIBBBBB', width, height, depth,
                        _PNG_COLOR_TYPES[channels], 0, 0, 0)
-  return (_PNG_SIGNATURE + _chunk(b'IHDR', header)
-          + _chunk(b'IDAT', zlib.compress(body, level))
+  return header, rows, channels * depth // 8
+
+
+def _png(header: bytes, stream: bytes, idat_size: int) -> bytes:
+  idats = b''.join(_chunk(b'IDAT', stream[i:i + idat_size])
+                   for i in range(0, max(len(stream), 1), idat_size))
+  return (_PNG_SIGNATURE + _chunk(b'IHDR', header) + idats
           + _chunk(b'IEND', b''))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+  """PNG bytes equal to those of `cv2.imencode('.png', ...)` with its
+  default parameters (OpenCV 5.0, checked against it for every shape and
+  depth in tests/test_torch_capture.py), given the channels in RGB(A)
+  order: every row Sub-filtered (None for a one-pixel row), zlib level 1
+  with the Z_RLE strategy over the smallest window (2^8 to 2^15 bytes)
+  that holds the filtered data, the stream's header naming that window,
+  IDAT chunks of 8 KiB.
+  """
+  header, rows, bpp = _png_rows(image)
+  height = rows.shape[0]
+  filtered = rows.copy()
+  filtered[:, bpp:] = rows[:, bpp:] - rows[:, :-bpp]
+  kind = 1 if rows.shape[1] > bpp else 0
+  body = np.concatenate(
+      [np.full((height, 1), kind, np.uint8), filtered], axis=1).tobytes()
+  wbits = min(15, max(8, (len(body) - 1).bit_length()))
+  # zlib refuses a window of 2^8 to deflate; the header still names it.
+  compressor = zlib.compressobj(1, zlib.DEFLATED, max(wbits, 9), 8,
+                                zlib.Z_RLE)
+  stream = compressor.compress(body) + compressor.flush()
+  cmf = ((wbits - 8) << 4) | 8
+  flg = stream[1] & 0xE0
+  flg |= 31 - (cmf * 256 + flg) % 31
+  return _png(header, bytes([cmf, flg]) + stream[2:], 8192)
 
 
 # --------------------------------------------------------------- resizing
@@ -274,9 +285,19 @@ def _resize_area(image: np.ndarray, out_height: int,
   if height % out_height == 0 and width % out_width == 0:
     sy, sx = height // out_height, width // out_width
     work = np.float64 if image.dtype == np.float64 else np.float32
-    blocks = image.astype(work).reshape(
-        (out_height, sy, out_width, sx) + image.shape[2:])
-    mean = blocks.sum(axis=(1, 3)) * work(1.0 / (sy * sx))
+    # A block's pixels in row-major order, summed in cv2's order: four
+    # at a time, left to right, into a running sum (exact for integers).
+    terms = np.moveaxis(image.astype(work).reshape(
+        (out_height, sy, out_width, sx) + image.shape[2:]), 2, 1).reshape(
+            (out_height, out_width, sy * sx) + image.shape[2:])
+    area = sy * sx
+    total = np.zeros_like(terms[:, :, 0])
+    for k in range(0, area - 3, 4):
+      total = total + (((terms[:, :, k] + terms[:, :, k + 1])
+                        + terms[:, :, k + 2]) + terms[:, :, k + 3])
+    for k in range(area - area % 4, area):
+      total = total + terms[:, :, k]
+    mean = total * work(1.0 / area)
     return _cv_shape(_as_dtype(mean, image.dtype), image)
   wy = _area_weights(height, out_height)
   wx = _area_weights(width, out_width)
@@ -435,7 +456,8 @@ def load_image(path) -> np.ndarray:
 
 
 def save_image(path, image: np.ndarray) -> None:
-  """Saves uint8 / uint16 gray, gray+alpha, RGB or RGBA as a PNG."""
+  """Saves uint8 / uint16 gray, gray+alpha, RGB or RGBA as a PNG, in the
+  bytes that the JAX package's cv2 writes."""
   _check_png(path)
   data = encode_png(np.asarray(image))
   with open(path, 'wb') as f:

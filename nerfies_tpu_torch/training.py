@@ -37,7 +37,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from nerfies_tpu_torch import evaluation
 from nerfies_tpu_torch import fused_train
 from nerfies_tpu_torch import resolve_device
 from nerfies_tpu_torch import utils
@@ -406,7 +405,7 @@ def make_train_step(model, train_config, device='cuda'):
 
   def step(generator, state, batch, scalar_params, background_draws=None):
     return train_step(
-        model, generator, state, evaluation._to_device(batch, device),
+        model, generator, state, utils.to_device(batch, device),
         scalar_params,
         use_elastic_loss=train_config.use_elastic_loss,
         elastic_reduce_method=train_config.elastic_reduce_method,

@@ -1,16 +1,24 @@
-"""Host-side helpers of the training loop: a thread-pool map and meters.
+"""Host-side utilities: meters, interpolation, batching helpers.
 
-Port of the parts of nerfies_tpu/utils.py that the training and eval CLIs
-use: `parallel_map`, `strided_subset`, `ValueMeter` and `TimeTracker`;
-and `fold_in`, the port's `random.fold_in`.
+Port of nerfies_tpu/utils.py: `parallel_map`, `strided_subset`,
+`ValueMeter` and `TimeTracker` of the training loop; the camera-path and
+latent-code interpolation (numpy and scipy, as in JAX); `robust_whiten`,
+`learning_rate_decay`, `normalize`, `broadcast_feature_to`,
+`metadata_like`, `tree_collate` and `print_time`; `to_device`, an
+explicit move onto a device (JAX's moves onto its default one); and
+`fold_in`, the port's `random.fold_in`. The differentiable helpers that
+JAX's module re-exports live in `ops/mathutils.py`.
 """
 
 import collections
 import contextlib
 import time
 from concurrent import futures
+from typing import List, Union
 
 import numpy as np
+from scipy import interpolate
+from scipy.spatial import transform as scipy_transform
 import torch
 
 
@@ -19,6 +27,103 @@ def fold_in(seed: int, index: int, device) -> torch.Generator:
   `random.fold_in(rng, index)`: a step's or a render chunk's stream."""
   mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(index)) % (1 << 63)
   return torch.Generator(device).manual_seed(mixed)
+
+
+def robust_whiten(x: torch.Tensor) -> torch.Tensor:
+  """(x - median) / mean absolute deviation, ignoring NaNs (the median of
+  an even count is the mean of the middle two, as jnp.nanmedian's)."""
+  median = torch.nanquantile(x.reshape(-1), 0.5)
+  mad = torch.nanmean(torch.abs(x - median))
+  return (x - median) / mad
+
+
+def learning_rate_decay(step, init_lr=5e-4, decay_steps=100000,
+                        decay_rate=0.1):
+  """lr = init_lr * decay_rate**(step / decay_steps)."""
+  power = step / decay_steps
+  return init_lr * (decay_rate ** power)
+
+
+def interpolate_codes(codes: Union[np.ndarray, List[np.ndarray]],
+                      num_samples: int, method: str = 'spline') -> np.ndarray:
+  """Interpolates latent codes along the exemplar axis."""
+  if isinstance(codes, list):
+    codes = np.array(codes)
+  t = np.arange(len(codes))
+  xs = np.linspace(0, len(codes) - 1, num_samples)
+  if method == 'spline':
+    cs = interpolate.CubicSpline(t, codes, bc_type='natural')
+    return cs(xs).astype(np.float32)
+  if method == 'linear':
+    interp = interpolate.interp1d(t, codes, axis=0)
+    return interp(xs).astype(np.float32)
+  raise ValueError(f'Unknown method {method!r}')
+
+
+def interpolate_cameras(cameras, num_samples: int):
+  """Slerp orientations + cubic-spline positions along a camera path."""
+  rotations = [camera.orientation for camera in cameras]
+  positions = [camera.position for camera in cameras]
+
+  in_times = np.linspace(0, 1, len(rotations))
+  slerp = scipy_transform.Slerp(
+      in_times, scipy_transform.Rotation.from_matrix(rotations))
+  spline = interpolate.CubicSpline(in_times, positions)
+
+  out_times = np.linspace(0, 1, num_samples)
+  out_rots = slerp(out_times).as_matrix()
+  out_positions = spline(out_times)
+
+  ref_camera = cameras[0]
+  out_cameras = []
+  for out_rot, out_pos in zip(out_rots, out_positions):
+    out_camera = ref_camera.copy()
+    out_camera.orientation = out_rot
+    out_camera.position = out_pos
+    out_cameras.append(out_camera)
+  return out_cameras
+
+
+def normalize(x):
+  return x / np.linalg.norm(x)
+
+
+def to_device(xs, device):
+  """A nested dict of arrays (numpy, lists or tensors) -> the same dict of
+  tensors on `device`, integers as int64 and the rest as float32."""
+  if isinstance(xs, dict):
+    return {k: to_device(v, device) for k, v in xs.items()}
+  if not isinstance(xs, torch.Tensor):
+    array = np.asarray(xs)
+    xs = torch.from_numpy(np.ascontiguousarray(array).astype(
+        np.int64 if np.issubdtype(array.dtype, np.integer) else np.float32))
+  return xs.to(device, non_blocking=True)
+
+
+def broadcast_feature_to(array: torch.Tensor, shape) -> torch.Tensor:
+  """Broadcasts batch dims, keeping the array's own channel count."""
+  return torch.broadcast_to(array, (*shape[:-1], array.shape[-1]))
+
+
+def metadata_like(rays: torch.Tensor, metadata_id) -> torch.Tensor:
+  """A metadata column shaped like a ray batch (int64, the port's id
+  dtype; JAX's is uint32)."""
+  return torch.full_like(rays[..., :1], metadata_id, dtype=torch.int64)
+
+
+def tree_collate(list_of_trees):
+  """Stacks a list of identical nested dicts leaf-wise (numpy)."""
+  first = list_of_trees[0]
+  if isinstance(first, dict):
+    return {k: tree_collate([t[k] for t in list_of_trees]) for k in first}
+  return np.stack(list_of_trees)
+
+
+@contextlib.contextmanager
+def print_time(name):
+  start = time.time()
+  yield
+  print(f'[{name}] time elapsed: {time.time() - start:.04f}')
 
 
 def parallel_map(f, iterable, max_threads=None, show_pbar=False, **kwargs):

@@ -14,6 +14,7 @@ import math
 import struct
 import zlib
 
+import cv2
 import jax.numpy as jnp
 import numpy as np
 from PIL import Image
@@ -98,10 +99,17 @@ def test_cv2_decodes_port_pngs(tmp_path, shape, mode, dtype):
 
 
 def test_port_pngs_use_every_filter_and_decode():
+  """The decoder on every filter (libpng through cv2, all filters
+  allowed) and on the port's own PNGs (Sub filters, as cv2 writes)."""
   image = _image((64, 80, 3), np.uint8, seed=2)
-  data = image_utils.encode_png(image)
-  assert _png_filters(data) >= {1, 2, 3, 4}
-  np.testing.assert_array_equal(image_utils.decode_png(data), image)
+  ok, data = cv2.imencode('.png', image[..., ::-1],
+                          [cv2.IMWRITE_PNG_FILTER, cv2.IMWRITE_PNG_ALL_FILTERS])
+  assert ok
+  assert _png_filters(data.tobytes()) >= {1, 2, 3, 4}
+  np.testing.assert_array_equal(image_utils.decode_png(data.tobytes()), image)
+  own = image_utils.encode_png(image)
+  assert _png_filters(own) == {1}
+  np.testing.assert_array_equal(image_utils.decode_png(own), image)
 
 
 def test_pillow_pngs_decode(tmp_path):

@@ -51,6 +51,7 @@ from nerfies_tpu_torch import visualization
 from nerfies_tpu_torch.datasets import synthetic
 from nerfies_tpu_torch.ops import ssim
 from tests import torch_parity
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jax_eval = importlib.import_module('eval')
 

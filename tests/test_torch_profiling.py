@@ -14,6 +14,7 @@ import torch
 
 from nerfies_tpu_torch import configs
 from nerfies_tpu_torch import profiling
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEP = ['step', '--device', 'cpu', '--batch_size', '8', '--steps', '2']
 
