@@ -59,12 +59,53 @@ def log1p_safe(x):
   return torch.log1p(torch.clamp(x, max=3e37))
 
 
+def exp_safe(x):
+  return torch.exp(torch.clamp(x, max=87.5))
+
+
 def expm1_safe(x):
   return torch.expm1(torch.clamp(x, max=87.5))
 
 
 def safe_sqrt(x: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
   return torch.sqrt(torch.where(x == 0, torch.full_like(x, eps), x))
+
+
+def logit(y):
+  return -torch.log(1.0 / y - 1.0)
+
+
+def affine_sigmoid(real, lo=0, hi=1):
+  """Maps reals to (lo, hi), where 0 maps to (lo+hi)/2."""
+  if not lo < hi:
+    raise ValueError(f'`lo` ({lo:g}) must be < `hi` ({hi:g})')
+  return torch.sigmoid(real) * (hi - lo) + lo
+
+
+def inv_affine_sigmoid(alpha, lo=0, hi=1):
+  if not lo < hi:
+    raise ValueError(f'`lo` ({lo:g}) must be < `hi` ({hi:g})')
+  return logit((alpha - lo) / (hi - lo))
+
+
+def inv_softplus(y):
+  y = torch.as_tensor(y)
+  return torch.where(y > 87.5, y, torch.log(torch.expm1(y)))
+
+
+def affine_softplus(real, lo=0, ref=1):
+  """Maps reals to (lo, inf), where 0 maps to ref."""
+  if not lo < ref:
+    raise ValueError(f'`lo` ({lo:g}) must be < `ref` ({ref:g})')
+  shift = math.log(math.expm1(1.0))  # inv_softplus(1.0)
+  return (ref - lo) * torch.nn.functional.softplus(real + shift) + lo
+
+
+def inv_affine_softplus(scale, lo=0, ref=1):
+  if not lo < ref:
+    raise ValueError(f'`lo` ({lo:g}) must be < `ref` ({ref:g})')
+  shift = math.log(math.expm1(1.0))  # inv_softplus(1.0)
+  return inv_softplus((scale - lo) / (ref - lo)) - shift
 
 
 def general_loss_with_squared_residual(squared_x: torch.Tensor, alpha,

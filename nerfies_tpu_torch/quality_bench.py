@@ -24,6 +24,12 @@ script's keys) and a checkpoint of the full state into --work_dir.
 flattened with '/', plus `__warp_alpha__` and `__time_alpha__`; an npz of
 either package loads in either's serve bench.
 
+`--stop_at` ends a run early on the schedules of --steps (the learning
+rate decays and the warp window opens over --steps), as
+docs/quality_curve.json holds the first 6,000 steps of a 20,000-step run;
+such a curve is marked partial. On a card the curve also names the card
+and its power limit, as nvidia-smi reads them.
+
 Two behaviours of the JAX script are not copied: `--resume` is off by
 default (a run starts fresh unless asked), and a resumed run advances the
 ray and background-point iterators past the steps already taken, so it
@@ -51,9 +57,10 @@ import dataclasses
 import json
 import os
 import pathlib
+import subprocess
 import tempfile
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +82,8 @@ from nerfies_tpu_torch.parallel import mesh
 DEFAULT_DIR = os.path.join(tempfile.gettempdir(),
                            'nerfies_tpu_torch_quality')
 EVAL_CHUNK = 8192
+# --seed s draws the params from seed 2s and the steps from 2s + 1, and
+# shuffles the rays and background points with s.
 PARAMS_SEED = 0
 STEP_SEED = 1
 
@@ -83,7 +92,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   parser = argparse.ArgumentParser(
       description='Trains the textured synthetic scene and records its '
       'quality curve.')
-  parser.add_argument('--steps', type=int, default=20000)
+  parser.add_argument('--steps', type=int, default=20000,
+                      help='the schedules\' length (learning rate, warp '
+                      'alpha)')
+  parser.add_argument('--stop_at', type=int, default=0,
+                      help='end the run after this step of the --steps '
+                      'schedules (0: run all --steps); the curve is then '
+                      'marked partial')
   parser.add_argument('--eval_every', type=int, default=2000)
   parser.add_argument('--batch_size', type=int, default=6144)
   parser.add_argument('--scene_dir',
@@ -116,6 +131,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                       help='restore the latest --work_dir checkpoint and '
                       'the matching prefix of the existing --out curve, '
                       'then continue; off by default')
+  parser.add_argument('--seed', type=int, default=0,
+                      help='a replicate of the run: the params, the '
+                      'steps\' draws and the data order from other seeds')
   parser.add_argument('--device', default='cuda',
                       help="torch device; 'cpu' runs the plain versions.")
   return parser.parse_args(argv)
@@ -126,6 +144,20 @@ def model_config(fused: bool = True) -> configs.ModelConfig:
   model, _ = configs.bench_train_config()
   return dataclasses.replace(model, use_fused_mlp=fused,
                              use_fused_warp=fused, rgb_padding=0.001)
+
+
+def card_label() -> Optional[Tuple[str, str]]:
+  """The card's name and power limit as nvidia-smi prints them, or None
+  where nvidia-smi does not run."""
+  try:
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60, check=True)
+  except (OSError, subprocess.SubprocessError):
+    return None
+  name, _, limit = smi.stdout.strip().splitlines()[0].rpartition(', ')
+  return name, limit
 
 
 def log(message: str) -> None:
@@ -200,24 +232,30 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
   `torchrun`).
 
   Raises:
-    ValueError: a batch size that the world size does not divide.
+    ValueError: a batch size that the world size does not divide, or a
+      --stop_at past --steps.
   """
   device = mesh.init(args.device)
   if args.batch_size % mesh.world_size() != 0:
     raise ValueError('Batch size must be divisible by the number of devices.')
+  if not 0 <= args.stop_at <= args.steps:
+    raise ValueError(f'--stop_at {args.stop_at} lies outside [0, --steps '
+                     f'{args.steps}].')
   scene = write_scene(args)
   datasource = datasets.from_config(
       {'type': 'nerfies', 'data_dir': str(scene)},
       image_scale=1, use_appearance_id=True, use_camera_id=True,
-      use_warp_id=True, random_seed=0)
+      use_warp_id=True, random_seed=args.seed)
   _, bench_train = configs.bench_train_config()
   train_config = dataclasses.replace(bench_train, batch_size=args.batch_size)
   ids = dict(appearance_ids=datasource.appearance_ids,
              camera_ids=datasource.camera_ids,
              warp_ids=datasource.warp_ids,
              near=datasource.near, far=datasource.far)
+  params_seed = PARAMS_SEED + 2 * args.seed
+  step_seed = STEP_SEED + 2 * args.seed
   model, params = nerf.construct_nerf(
-      config, generator=torch.Generator().manual_seed(PARAMS_SEED),
+      config, generator=torch.Generator().manual_seed(params_seed),
       device=device, use_warp_jacobian=True, use_weights=True, **ids)
   step_fn = training.make_train_step(model, train_config, device)
   state = training.create_train_state(params)
@@ -238,14 +276,14 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
   # iterator slices its batches by rank itself).
   rows = mesh.local_batch_slice(points_batch_size)
   points_iter = (batch[rows] for batch in datasets_core.iterator_from_arrays(
-      points, batch_size=points_batch_size, shuffle=True, seed=0,
+      points, batch_size=points_batch_size, shuffle=True, seed=args.seed,
       prefetch_size=3))
 
   # The serving model: deterministic samples, the serving kernels.
   eval_config = dataclasses.replace(config, use_stratified_sampling=False,
                                     use_fused_mlp=False, use_fused_warp=True)
   eval_model, _ = nerf.construct_nerf(
-      eval_config, generator=torch.Generator().manual_seed(PARAMS_SEED),
+      eval_config, generator=torch.Generator().manual_seed(params_seed),
       device=device, **ids)
   render_fn = evaluation.make_render_fn(eval_model, device=device)
   # The val frames reuse train metadata ids and show that frame's state,
@@ -258,6 +296,8 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
     out_path.parent.mkdir(parents=True, exist_ok=True)
   device_name = (torch.cuda.get_device_name(device) if device.type == 'cuda'
                  else 'cpu')
+  card = card_label() if device.type == 'cuda' else None
+  last_step = args.stop_at or args.steps
 
   def write_result(curve, partial=False):
     result = {
@@ -268,6 +308,8 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
         'device': device_name,
         'curve': curve,
     }
+    if card is not None:
+      result['card'], result['power_limit'] = card
     if partial:
       result['partial'] = True
     # allow_nan=False: a non-finite value fails here, not in a reader.
@@ -303,7 +345,7 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
 
   step_seconds = []
   t_start = time.time()
-  for step in range(start_step + 1, args.steps + 1):
+  for step in range(start_step + 1, last_step + 1):
     batch = next(train_iter)
     batch['background_points'] = next(points_iter)
     scalar_params = training.ScalarParams(
@@ -314,11 +356,11 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
         warp_alpha_sched(step)))
     tick = time.perf_counter()
     state, stats = step_fn(
-        training.step_generator(STEP_SEED, step, device), state, batch,
+        training.step_generator(step_seed, step, device), state, batch,
         scalar_params)
     loss = float(stats['fine']['loss/rgb'])  # waits for the step
     step_seconds.append(time.perf_counter() - tick)
-    if step % args.eval_every == 0 or step == args.steps:
+    if step % args.eval_every == 0 or step == last_step:
       if not np.isfinite(loss):
         raise FloatingPointError(f'step {step}: non-finite loss {loss}')
       with torch.no_grad():
@@ -350,7 +392,10 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
       if args.save_params and mesh.is_main():
         save_params(args.save_params, state)
 
-  result = write_result(curve)
+  result = write_result(curve, partial=last_step < args.steps)
+  if step_seconds:
+    log(f'step median {1e3 * float(np.median(step_seconds)):.2f} ms over '
+        f'{len(step_seconds)} steps')
   log(f'wrote {args.out}')
   if args.save_params and mesh.is_main():
     save_params(args.save_params, state)

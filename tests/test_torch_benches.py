@@ -162,6 +162,37 @@ def test_resumed_run_ends_where_an_unbroken_one_does(tmp_path):
     assert got == want
 
 
+def test_stop_at_ends_the_schedules_of_a_longer_run(tmp_path):
+  """--stop_at 2 of --steps 4 gives the first two rows of the 4-step run
+  (its schedules, not those of a 2-step run), marked partial."""
+  full = quality_bench.run(_args(tmp_path / 'full', '--steps', '4'),
+                           _config())
+  stopped = quality_bench.run(
+      _args(tmp_path / 'stopped', '--steps', '4', '--stop_at', '2'),
+      _config())
+  assert stopped.result['partial'] and 'partial' not in full.result
+  assert stopped.result['steps'] == 4 and stopped.state.step == 2
+  assert len(stopped.step_seconds) == 2
+  for got, want in zip(stopped.result['curve'], full.result['curve'][:2],
+                       strict=True):
+    got.pop('wall_s'), want.pop('wall_s')
+    assert got == want
+  with pytest.raises(ValueError, match='--stop_at'):
+    quality_bench.run(_args(tmp_path / 'bad', '--steps', '2', '--stop_at',
+                            '3'), _config())
+
+
+def test_seed_gives_another_replicate(quality_run, tmp_path):
+  _, run = quality_run
+  other = quality_bench.run(_args(tmp_path, '--seed', '1'), _config())
+  assert [r['step'] for r in other.result['curve']] == [1, 2]
+  assert all(got['val_psnr'] != want['val_psnr'] for got, want in
+             zip(other.result['curve'], run.result['curve']))
+  want = dict(fused_mlp.flatten_tree(run.state.params))
+  assert not all(torch.equal(t, want[path]) for path, t in
+                 fused_mlp.flatten_tree(other.state.params))
+
+
 def test_resume_is_off_by_default():
   args = quality_bench.parse_args([])
   assert not args.resume and args.fused

@@ -22,6 +22,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / 'nerfies_tpu_torch').rglob('*.py')) + [
     REPO / 'chip_smoke.py', REPO / 'scripts' / 'time_warp_backward.py',
     REPO / 'scripts' / 'time_forwards.py',
+    REPO / 'scripts' / 'compare_quality_curves.py',
+    REPO / 'scripts' / 'render_routes.py',
     # The modules the spawned ranks of tests/test_torch_parallel.py and
     # tests/test_torch_benches.py import.
     REPO / 'tests' / 'torch_parallel_workers.py',

@@ -12,6 +12,7 @@ losses and Adam at 1e-5 and 1e-6.
 """
 
 import dataclasses
+import functools
 from unittest import mock
 
 import jax
@@ -176,6 +177,63 @@ def test_train_step_matches_jax(reduce_method):
       fused_mlp.flatten_tree(new_state.params),
       fused_mlp.flatten_tree(state.params))]
   assert sum(moved) > len(moved) // 2
+
+
+# The trajectory's learning rate: the quality bench's at step 6,000 of its
+# 20,000-step schedule. At 1e-3 this small model's warp field turns chaotic
+# within 20 steps: the port against itself, from params perturbed by one
+# part in 1e7, parts on coarse/metric/jacobian_div by 3% at step 20, so a
+# comparison there would read amplified rounding, not the port.
+_TRAJECTORY_LR = 5e-4
+_TRAJECTORY_STEPS = 20
+
+
+def test_train_trajectory_matches_jax():
+  """20 steps of the fused route from the same params on the same batches
+  and background draws: every step's stats (rtol 0.05, atol 5e-4, as one
+  step's) and Adam count, and at the last step the params, their
+  displacement from the start and Adam's moments by grad_check (cosine >
+  0.95, norm ratio in (0.7, 1.4))."""
+  jmodel, jparams = _build()
+  model = port_model()
+  scalars = dict(learning_rate=_TRAJECTORY_LR, elastic_loss_weight=0.01,
+                 warp_reg_loss_weight=0.01, background_loss_weight=1.0)
+  switches = dict(use_elastic_loss=True, elastic_reduce_method='weight',
+                  use_warp_reg_loss=True, use_background_loss=True)
+  jax_step = jax.jit(functools.partial(jax_training.train_step, jmodel,
+                                       **switches))
+  jstate = jax_training.create_train_state(jparams, warp_alpha=_WARP_ALPHA)
+  step = training.make_train_step(
+      model, configs.TrainConfig(batch_size=12, **switches), device='cpu')
+  start = interop.params_from_jax(jparams, device='cpu')
+  state = training.create_train_state(
+      interop.params_from_jax(jparams, device='cpu'), warp_alpha=_WARP_ALPHA)
+  for i in range(_TRAJECTORY_STEPS):
+    batch = _batch(seed=100 + i)
+    batch['background_points'] = np.random.RandomState(200 + i).normal(
+        size=(32, 3)).astype(np.float32)
+    key = random.PRNGKey(1000 + i)
+    jstate, jstats, _ = jax_step(key, jstate, batch,
+                                 jax_training.ScalarParams(**scalars))
+    draws = _jax_background_draws(jmodel, random.split(key, 4)[3], 32)
+    state, stats = step(None, state, batch, training.ScalarParams(**scalars),
+                        draws)
+    want = {'/'.join(k.key for k in path): float(v) for path, v in
+            jax.tree_util.tree_flatten_with_path(jstats)[0]}
+    got = {'/'.join(path): float(v)
+           for path, v in fused_mlp.flatten_tree(stats)}
+    assert set(got) == set(want)
+    for name, value in want.items():
+      np.testing.assert_allclose(got[name], value, rtol=0.05, atol=5e-4,
+                                 err_msg=f'step {i + 1}: {name}')
+    assert state.step == i + 1
+    assert state.opt_state.count == int(jstate.opt_state.count) == i + 1
+  grad_check(state.params, jstate.params, 'params')
+  grad_check(training._map(lambda a, b: a - b, state.params, start),
+             jax.tree.map(lambda a, b: a - b, jstate.params, jparams),
+             'displacement')
+  grad_check(state.opt_state.mu, jstate.opt_state.mu, 'first moment')
+  grad_check(state.opt_state.nu, jstate.opt_state.nu, 'second moment')
 
 
 def test_adam_step_from_a_jax_state_matches_optax():
