@@ -8,6 +8,16 @@ non-zero exit at the first phase that fails:
   build    build the kernels from nerfies_tpu_torch/csrc, one nvcc per
            source, started together; print ptxas's registers and spills
            and require none for the forwards (NO_SPILL_KERNELS).
+  draws    the training step's random draws on the card's generator
+           (Philox), through nerfies_tpu_torch.draw_stats.check_draws:
+           the stratified depths of each stratum and the inverse-CDF
+           samples of fixed weights with zero-mass bins by Kolmogorov-
+           Smirnov against their exact laws, the background loss's warp
+           ids by chi-squared against uniform and its noise's mean, sd and
+           KS against N(0, 1), and |r| between step k's and step k + 1's
+           streams (training.step_generator) below 4 / sqrt(n); at least
+           131,072 draws a check, each statistic below its critical value
+           at 1e-3. Prints each statistic and a JSON line {"draws": ...}.
   kernels  hold each kernel against its plain PyTorch version at the full
            width of the bench model and at the row counts serving and
            training give it (atol = rtol = 0.05, the bf16 tolerance of
@@ -212,6 +222,7 @@ from nerfies_tpu_torch import capture
 from nerfies_tpu_torch import checkpoints
 from nerfies_tpu_torch import configs
 from nerfies_tpu_torch import datasets
+from nerfies_tpu_torch import draw_stats
 from nerfies_tpu_torch import eval as eval_cli
 from nerfies_tpu_torch import evaluation
 from nerfies_tpu_torch import fast_render
@@ -524,6 +535,16 @@ def phase_device():
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   return name
+
+
+def phase_draws(device=torch.device('cuda', 0)):
+  checks = draw_stats.check_draws(device)
+  for name, c in checks.items():
+    print(f"  {name}: {c['statistic']:.6g} < {c['limit']:.6g} "
+          f"({c['n']} draws)")
+  print(json.dumps({'draws': checks}))
+  failed = draw_stats.failures(checks)
+  check(not failed, f'draws outside their laws: {failed}')
 
 
 def phase_build():
@@ -2530,6 +2551,7 @@ def main(argv=None):
     device_name = run_phase('device', phase_device)
     device = torch.device('cuda', 0)
     build_seconds = run_phase('build', phase_build)
+    run_phase('draws', phase_draws)
     generator = torch.Generator().manual_seed(args.seed)
     model, params = nerf.construct_nerf(
         configs.bench_render_config(), **configs.BENCH_RENDER_IDS,

@@ -24,6 +24,7 @@ PORT_FILES = sorted((REPO / 'nerfies_tpu_torch').rglob('*.py')) + [
     REPO / 'scripts' / 'time_forwards.py',
     REPO / 'scripts' / 'compare_quality_curves.py',
     REPO / 'scripts' / 'render_routes.py',
+    REPO / 'scripts' / 'training_spread_torch.py',
     # The modules the spawned ranks of tests/test_torch_parallel.py and
     # tests/test_torch_benches.py import.
     REPO / 'tests' / 'torch_parallel_workers.py',

@@ -8,13 +8,16 @@ import importlib.util
 import json
 import pathlib
 
+import numpy as np
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 JAX_CURVE = REPO / 'docs' / 'quality_curve.json'
-# The fused route's 6,000-step curves of an H100 (seeds 0 and 1).
+# The fused route's 6,000-step curves of an H100 (seeds 0, 1, 3 and 4).
 H100_CURVES = [REPO / 'nerfies_tpu_torch' / 'curves' / name for name in (
-    'quality_curve_h100.json', 'quality_curve_h100_fused_seed1.json')]
+    'quality_curve_h100.json', 'quality_curve_h100_fused_seed1.json',
+    'quality_curve_h100_fused_seed3.json',
+    'quality_curve_h100_fused_seed4.json')]
 STEPS = (2000, 4000, 6000)
 
 
@@ -118,3 +121,101 @@ def test_the_h100_curve_has_the_jax_curves_form(path):
       assert isinstance(rows[step][key], float) and rows[step][key] > 0
   assert curve['card'].startswith('NVIDIA')
   assert curve['power_limit'].endswith(' W')
+
+
+SPREAD_DIR = REPO / 'nerfies_tpu_torch' / 'curves' / 'spread'
+
+
+def _spread_curve(values, steps=(500, 1000)):
+  return {'curve': [{'step': step, 'val_psnr': v, 'train_view_psnr': v,
+                     'train_loss': 10 ** -v, 'train_loss_mean': 10 ** -v}
+                    for step, v in zip(steps, values)]}
+
+
+def _run_spread(tmp_path, reference, candidate):
+  paths = {}
+  for name, curves in (('reference', reference), ('candidate', candidate)):
+    paths[name] = []
+    for i, curve in enumerate(curves):
+      paths[name].append(tmp_path / f'{name}{i}.json')
+      paths[name][-1].write_text(json.dumps(curve))
+  return compare_quality_curves.main(
+      ['--spread', *map(str, paths['reference']),
+       '--against', *map(str, paths['candidate'])])
+
+
+def test_welch_matches_scipy():
+  from scipy import stats
+  reference, candidate = [30.1, 30.9, 29.7, 30.4], [29.2, 30.0, 29.9]
+  row = compare_quality_curves.welch(reference, candidate)
+  want = stats.ttest_ind(candidate, reference, equal_var=False)
+  assert row['t'] == pytest.approx(float(want.statistic), rel=1e-9)
+  assert row['df'] == pytest.approx(float(want.df), rel=1e-9)
+  assert row['reference_sd'] == pytest.approx(float(np.std(reference,
+                                                           ddof=1)))
+  assert row['diff'] == pytest.approx(np.mean(candidate) - np.mean(reference))
+
+
+def test_spread_sets_that_agree_pass(tmp_path, capsys):
+  reference = [_spread_curve([20 + d, 25 + d]) for d in (0.0, 0.4, -0.3)]
+  candidate = [_spread_curve([20 + d, 25 + d]) for d in (0.2, -0.1, 0.1)]
+  assert _run_spread(tmp_path, reference, candidate) == 0
+  out = capsys.readouterr().out
+  assert out.count('agrees') == 8 and 'trails' not in out.split('\n', 2)[2]
+  assert out.splitlines()[-1] == 'OK'
+
+
+@pytest.mark.parametrize('worse', ['psnr', 'loss'])
+def test_a_spread_set_that_trails_fails(tmp_path, capsys, worse):
+  """PSNRs 1 dB lower (or losses 10x higher) at 1000 with an sd of ~0.3
+  trail by more than two pooled standard errors; 500 agrees."""
+  reference = [_spread_curve([20 + d, 25 + d]) for d in (0.0, 0.4, -0.3)]
+  candidate = [_spread_curve([20 + d, 24 + d]) for d in (0.2, -0.1, 0.1)]
+  if worse == 'loss':
+    for curve in candidate:
+      row = curve['curve'][1]
+      row['val_psnr'] = row['train_view_psnr'] = row['val_psnr'] + 1.0
+  assert _run_spread(tmp_path, reference, candidate) == 1
+  lines = capsys.readouterr().out.splitlines()
+  trailing = [line.split(' | ')[:2] for line in lines if 'trails' in line
+              and line[0].isdigit()]
+  want = (['val_psnr', 'train_view_psnr', 'train_loss_mean', 'train_loss']
+          if worse == 'psnr' else ['train_loss_mean', 'train_loss'])
+  assert trailing == [['1000', metric] for metric in want]
+  assert lines[-1] == 'FAIL'
+
+
+def test_spread_needs_both_sets_and_shared_steps(tmp_path, capsys):
+  with pytest.raises(SystemExit):
+    compare_quality_curves.main(['--spread', 'a.json'])
+  reference = [_spread_curve([20.0], steps=(500,))]
+  candidate = [_spread_curve([20.0], steps=(1000,))]
+  assert _run_spread(tmp_path, reference, candidate) == 1
+  assert 'no step and metric in every curve' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize('pattern,count', [
+    ('spread_jax_cpu_seed*.json', 4), ('spread_torch_cuda_seed*.json', 4),
+    ('spread_torch_cpu_seed*.json', 2)])
+def test_the_committed_spread_sets(pattern, count):
+  """The spread curves of both packages: their seeds, an eval every 500
+  steps to 3,000 of the 10,000-step schedule with finite readings, and a
+  card's name and power limit on the card's."""
+  paths = sorted(SPREAD_DIR.glob(pattern))
+  assert len(paths) >= count
+  seeds = set()
+  for path in paths:
+    curve = json.loads(path.read_text())
+    seeds.add(curve['seed'])
+    assert curve['steps'] == 10000 and curve['batch_size'] == 256
+    assert curve['image_size'] == [96, 72]
+    assert [row['step'] for row in curve['curve']] == list(
+        range(500, 3001, 500))
+    for row in curve['curve']:
+      for key in ('val_psnr', 'train_view_psnr', 'train_loss',
+                  'train_loss_mean'):
+        assert np.isfinite(row[key]) and row[key] > 0
+    if 'cuda' in pattern:
+      assert curve['card'].startswith('NVIDIA')
+      assert curve['power_limit'].endswith(' W')
+  assert len(seeds) == len(paths)
