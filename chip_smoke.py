@@ -147,6 +147,13 @@ non-zero exit at the first phase that fails:
            forward 3 and warp backward 3 plus the serving launches of the
            4 eval renders (counts set to 0 just before the run, read just
            after). Print the median step ms and rays/s and the curve.
+           Then the same run once more from --init_npz JAX_INIT_NPZ (JAX's
+           PRNGKey(0) tree of scripts/quality_bench.py) on the scene of
+           24 train frames whose ids that tree holds, cut to 96x72 (the
+           ids do not depend on the size): every leaf loaded on
+           the card equal to the npz's bit for bit, the curve recording
+           the init and the file's sha256, the same checks of its curve
+           and launches, and every param finite after the 20 steps.
   serve_bench  nerfies_tpu_torch.serve_bench.main on those params with
            --measure_1080p (a 128^3 bake over the points' box and margin;
            full, preset 32 + 64, and both culled modes, each on the val
@@ -352,6 +359,12 @@ CAPTURE_STEPS = 3
 # QUALITY_EVAL_EVERY; the serve_bench phase serves the params it saves.
 QUALITY_STEPS, QUALITY_EVAL_EVERY = 20, 10
 QUALITY_ARGV = ('--num_train', '8', '--image_size', '384', '288')
+# JAX's init of the quality bench's model (scripts/quality_init_jax.py),
+# for the scene of 24 train frames whose ids it holds, its frames cut to
+# 96x72 to keep the run short.
+JAX_INIT_NPZ = (pathlib.Path(__file__).resolve().parent / 'nerfies_tpu_torch'
+                / 'curves' / 'init' / 'quality_init_jax_key0.npz')
+JAX_INIT_ARGV = ('--num_train', '24', '--image_size', '96', '72')
 # The curve rounds PSNR to 5 places, serve_bench to 3.
 SERVE_PSNR_ATOL = 2e-3
 # The ddp phase: the CLIs under torchrun, one process per card of the
@@ -1991,7 +2004,61 @@ def phase_quality(work, device=torch.device('cuda', 0)):
         'rays/s')
   for row in curve:
     print(f'  [{card}] curve: {json.dumps(row)}')
+  _quality_from_jax_init(work, device)
   return counts
+
+
+def _quality_from_jax_init(work, device):
+  """The quality phase's run from JAX_INIT_NPZ: the loaded tree on the
+  card bit for bit the npz's, the curve and launches as the phase checks
+  them, and finite params after the steps."""
+  base = work / 'quality_jax_init'
+  argv = _quality_argv(base / 'scene', base, '--device', str(device),
+                       *JAX_INIT_ARGV, '--init_npz', str(JAX_INIT_NPZ))
+  args = quality_bench.parse_args(argv)
+  quality_bench.write_scene(args)
+  loaded = []
+  load_init = quality_bench.load_init
+
+  def keep(*load_args):
+    params = load_init(*load_args)
+    loaded.append({path: t.clone()
+                   for path, t in fused_mlp.flatten_tree(params)})
+    return params
+
+  quality_bench.load_init = keep
+  try:
+    fused_mlp.reset_launch_counts()
+    run = quality_bench.main(argv)
+    counts = fused_mlp.launch_counts()
+  finally:
+    quality_bench.load_init = load_init
+  check(len(loaded) == 1, f'{len(loaded)} init loads')
+  with np.load(JAX_INIT_NPZ) as data:
+    check(len(loaded[0]) == len(data.files),
+          f'{len(loaded[0])} leaves loaded of {len(data.files)}')
+    unequal = [name for name, t in loaded[0].items()
+               if t.device != device or t.dtype != torch.float32
+               or not torch.equal(t, torch.from_numpy(
+                   data['/'.join(name)]).to(device))]
+  check(not unequal, f'leaves unlike the npz on {device}: {unequal}')
+  sha = quality_bench.file_sha256(JAX_INIT_NPZ)
+  check(run.result.get('init') == 'jax'
+        and run.result.get('init_sha256') == sha,
+        f'curve init {run.result.get("init")} '
+        f'{run.result.get("init_sha256")}')
+  curve = run.result['curve']
+  _check_curve(curve)
+  want = _quality_launches(args, len(curve))
+  check(counts == want, f'JAX init launches {counts}, expected {want}')
+  bad = [name for name, t in fused_mlp.flatten_tree(run.state.params)
+         if not torch.isfinite(t).all()]
+  check(not bad, f'non-finite params after {QUALITY_STEPS} steps: {bad}')
+  print(f'  from JAX\'s init ({JAX_INIT_NPZ.name}, sha256 {sha[:16]}...): '
+        f'{len(loaded[0])} leaves equal on {device}, '
+        f'{QUALITY_STEPS} steps finite, launches {counts}')
+  for row in curve:
+    print(f'  [{card_label()}] JAX init curve: {json.dumps(row)}')
 
 
 @contextlib.contextmanager

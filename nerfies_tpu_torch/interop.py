@@ -91,6 +91,19 @@ def map_reference_params(ref_params: Mapping[str, Any],
   return out
 
 
+def load_npz_tree(path) -> Dict[str, Any]:
+  """An npz of '/'-joined names -> the nested tree of its arrays."""
+  tree = {}
+  with np.load(path) as data:
+    for name in data.files:
+      node = tree
+      *parents, leaf = name.split('/')
+      for key in parents:
+        node = node.setdefault(key, {})
+      node[leaf] = data[name]
+  return tree
+
+
 def params_from_jax(tree: Mapping, device='cuda') -> dict:
   """Nested mapping of array leaves -> nested dict of float32 tensors."""
   device = resolve_device(device)

@@ -30,6 +30,12 @@ docs/quality_curve.json holds the first 6,000 steps of a 20,000-step run;
 such a curve is marked partial. On a card the curve also names the card
 and its power limit, as nvidia-smi reads them.
 
+`--init_npz` starts from a param tree of '/'-joined names instead of the
+port's own init: JAX's PRNGKey(0) tree of scripts/quality_bench.py, as
+scripts/quality_init_jax.py writes it into
+nerfies_tpu_torch/curves/init/. The steps' draws still come from --seed.
+The curve then records `"init": "jax"` and the file's sha256.
+
 Two behaviours of the JAX script are not copied: `--resume` is off by
 default (a run starts fresh unless asked), and a resumed run advances the
 ray and background-point iterators past the steps already taken, so it
@@ -54,6 +60,7 @@ ranks under `torchrun`).
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import pathlib
@@ -69,6 +76,7 @@ from nerfies_tpu_torch import checkpoints
 from nerfies_tpu_torch import configs
 from nerfies_tpu_torch import datasets
 from nerfies_tpu_torch import evaluation
+from nerfies_tpu_torch import interop
 from nerfies_tpu_torch import schedules
 from nerfies_tpu_torch import training
 from nerfies_tpu_torch.datasets import core as datasets_core
@@ -134,6 +142,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   parser.add_argument('--seed', type=int, default=0,
                       help='a replicate of the run: the params, the '
                       'steps\' draws and the data order from other seeds')
+  parser.add_argument('--init_npz', default='',
+                      help="start from this npz's params ('/'-joined "
+                      "names; scripts/quality_init_jax.py writes JAX's) "
+                      "instead of the port's init of --seed")
   parser.add_argument('--device', default='cuda',
                       help="torch device; 'cpu' runs the plain versions.")
   return parser.parse_args(argv)
@@ -208,6 +220,27 @@ def ms_ssim(pred, target) -> Optional[float]:
   return float(metrics_ops.multiscale_ssim(pred, target, weights=weights))
 
 
+def load_init(path, like, device) -> dict:
+  """The npz's param tree on `device`, its names and shapes those of the
+  param tree `like`.
+
+  Raises:
+    ValueError: a name or a shape that differs from `like`'s.
+  """
+  params = interop.params_from_jax(interop.load_npz_tree(path), device)
+  want = {p: tuple(t.shape) for p, t in fused_mlp.flatten_tree(like)}
+  got = {p: tuple(t.shape) for p, t in fused_mlp.flatten_tree(params)}
+  if got != want:
+    names = sorted('/'.join(p) for p in set(got) ^ set(want)) or sorted(
+        '/'.join(p) for p in got if got[p] != want[p])
+    raise ValueError(f'{path} does not hold the model\'s params: {names}')
+  return params
+
+
+def file_sha256(path) -> str:
+  return hashlib.sha256(pathlib.Path(path).read_bytes()).hexdigest()
+
+
 def save_params(path, state) -> None:
   """The npz layout: '/'-joined param names, plus the warp alphas."""
   flat = {'/'.join(p): t.detach().cpu().numpy()
@@ -257,6 +290,8 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
   model, params = nerf.construct_nerf(
       config, generator=torch.Generator().manual_seed(params_seed),
       device=device, use_warp_jacobian=True, use_weights=True, **ids)
+  if args.init_npz:
+    params = load_init(args.init_npz, params, device)
   step_fn = training.make_train_step(model, train_config, device)
   state = training.create_train_state(params)
 
@@ -298,6 +333,7 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
                  else 'cpu')
   card = card_label() if device.type == 'cuda' else None
   last_step = args.stop_at or args.steps
+  init_sha256 = file_sha256(args.init_npz) if args.init_npz else None
 
   def write_result(curve, partial=False):
     result = {
@@ -310,6 +346,9 @@ def run(args: argparse.Namespace, config: configs.ModelConfig) -> Result:
     }
     if card is not None:
       result['card'], result['power_limit'] = card
+    if args.init_npz:
+      result['init'] = 'jax'
+      result['init_sha256'] = init_sha256
     if partial:
       result['partial'] = True
     # allow_nan=False: a non-finite value fails here, not in a reader.

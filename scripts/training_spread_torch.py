@@ -129,19 +129,6 @@ def load_datasource(scene, seed: int):
       random_seed=seed)
 
 
-def load_npz_tree(path) -> Dict[str, Any]:
-  """An npz of '/'-joined names -> the nested tree of its arrays."""
-  tree = {}
-  with np.load(path) as data:
-    for name in data.files:
-      node = tree
-      *parents, leaf = name.split('/')
-      for key in parents:
-        node = node.setdefault(key, {})
-      node[leaf] = data[name]
-  return tree
-
-
 class NumpyDraws:
   """`parallel.mesh.draw` drawing from numpy: uniforms for torch.rand,
   normals for torch.randn and integers for a torch.randint with its bound
@@ -189,7 +176,8 @@ def run(seed: int, device, scene_dir, out_path=None,
       config, generator=torch.Generator().manual_seed(params_seed(seed)),
       device=device, use_warp_jacobian=True, use_weights=True, **ids)
   if init_npz:
-    params = interop.params_from_jax(load_npz_tree(init_npz), device)
+    params = interop.params_from_jax(interop.load_npz_tree(init_npz),
+                                     device)
   step_fn = training.make_train_step(model, train_config, device)
   state = training.create_train_state(params)
 

@@ -11,6 +11,7 @@ both benches as one process does, and only rank 0 writes.
 """
 
 import dataclasses
+import hashlib
 import json
 import shutil
 
@@ -146,6 +147,59 @@ def test_jax_layout_npz_loads_through_the_serve_loader(tmp_path,
     assert torch.equal(got[key], want[key]), key
 
 
+def _init_npz(quality_run, path, drop=()):
+  """A random JAX tree of the tiny config and the scene's ids, written as
+  scripts/quality_init_jax.py writes JAX's init ('/'-joined names)."""
+  source = datasets.from_config(
+      {'type': 'nerfies', 'data_dir': str(quality_run[0] / 'scene')},
+      image_scale=1, use_appearance_id=True, use_camera_id=True,
+      use_warp_id=True)
+  jparams = random_params(_flat_jax_tree(source), seed=3)
+  flat = traverse_util.flatten_dict(jax.device_get(jparams), sep='/')
+  np.savez(path, **{k: np.asarray(v, np.float32) for k, v in flat.items()
+                    if k not in drop})
+  return path
+
+
+def test_init_npz_starts_from_its_params(quality_run, tmp_path,
+                                         monkeypatch):
+  """--init_npz trains from the npz's params, loaded bit for bit, and the
+  curve records the init and the file's sha256."""
+  path = _init_npz(quality_run, tmp_path / 'init.npz')
+  loaded = []
+  load_init = quality_bench.load_init
+
+  def spy(*args):
+    params = load_init(*args)
+    loaded.append({p: t.clone() for p, t in fused_mlp.flatten_tree(params)})
+    return params
+
+  monkeypatch.setattr(quality_bench, 'load_init', spy)
+  run = quality_bench.run(
+      _args(tmp_path, '--steps', '1', '--scene_dir',
+            str(quality_run[0] / 'scene'), '--init_npz', str(path)),
+      _config())
+  assert run.result['init'] == 'jax'
+  assert run.result['init_sha256'] == hashlib.sha256(
+      path.read_bytes()).hexdigest()
+  assert json.loads((tmp_path / 'curve.json').read_text()) == run.result
+  with np.load(path) as data:
+    assert len(loaded) == 1 and len(loaded[0]) == len(data.files)
+    for name, t in loaded[0].items():
+      assert t.dtype == torch.float32
+      assert torch.equal(t, torch.from_numpy(data['/'.join(name)])), name
+  assert run.state.step == 1
+
+
+def test_init_npz_of_another_model_raises(quality_run, tmp_path):
+  path = _init_npz(quality_run, tmp_path / 'init.npz',
+                   drop=('warp_field/trunk/hidden_0/bias',))
+  with pytest.raises(ValueError, match='hidden_0/bias'):
+    quality_bench.run(
+        _args(tmp_path, '--scene_dir', str(quality_run[0] / 'scene'),
+              '--init_npz', str(path)), _config())
+
+
 def test_resumed_run_ends_where_an_unbroken_one_does(tmp_path):
   unbroken = quality_bench.run(_args(tmp_path, '--steps', '3'), _config())
   # Drop the newest checkpoint: the resumed run restarts at step 2.
@@ -276,7 +330,13 @@ def test_two_ranks_give_the_curve_and_npz_of_one_process(two_ranks,
   got_curve = json.loads((tmp_path / 'curve.json').read_text())['curve']
   for rank in map(_ok, ranks):
     assert rank['world_size'] == WORLD
-    assert rank['curve'] == got_curve
+    # Each rank's own clock: every key but wall_s as written.
+    assert [{k: v for k, v in row.items() if k != 'wall_s'}
+            for row in rank['curve']] == [
+                {k: v for k, v in row.items() if k != 'wall_s'}
+                for row in got_curve]
+    for row in rank['curve']:
+      assert np.isfinite(row['wall_s']) and row['wall_s'] > 0
   assert [r['step'] for r in got_curve] == [r['step'] for r in want_curve]
   for got, want in zip(got_curve, want_curve):
     assert set(got) == CURVE_KEYS

@@ -4,6 +4,7 @@ here: that is a reading of the card, not of this checkout). Imports no
 JAX."""
 
 import copy
+import hashlib
 import importlib.util
 import json
 import pathlib
@@ -18,6 +19,13 @@ H100_CURVES = [REPO / 'nerfies_tpu_torch' / 'curves' / name for name in (
     'quality_curve_h100.json', 'quality_curve_h100_fused_seed1.json',
     'quality_curve_h100_fused_seed3.json',
     'quality_curve_h100_fused_seed4.json')]
+# The same from JAX's PRNGKey(0) init (the committed npz), with the steps'
+# draws of seeds 0 and 1, an eval every 500 steps.
+JAX_INIT_CURVES = [REPO / 'nerfies_tpu_torch' / 'curves' / name for name in (
+    'quality_curve_h100_jax_init_seed0.json',
+    'quality_curve_h100_jax_init_seed1.json')]
+JAX_INIT_NPZ = (REPO / 'nerfies_tpu_torch' / 'curves' / 'init'
+                / 'quality_init_jax_key0.npz')
 STEPS = (2000, 4000, 6000)
 
 
@@ -102,7 +110,8 @@ def test_a_shorter_curve_compares_the_shared_steps(tmp_path, capsys):
   assert 'no step in both curves' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize('path', H100_CURVES, ids=lambda p: p.name)
+@pytest.mark.parametrize('path', H100_CURVES + JAX_INIT_CURVES,
+                         ids=lambda p: p.name)
 def test_the_h100_curve_has_the_jax_curves_form(path):
   """JAX's keys, rows at 2,000, 4,000 and 6,000 steps of finite readings,
   and the card and its power limit as nvidia-smi prints them."""
@@ -121,6 +130,35 @@ def test_the_h100_curve_has_the_jax_curves_form(path):
       assert isinstance(rows[step][key], float) and rows[step][key] > 0
   assert curve['card'].startswith('NVIDIA')
   assert curve['power_limit'].endswith(' W')
+
+
+@pytest.mark.parametrize('path', JAX_INIT_CURVES, ids=lambda p: p.name)
+def test_the_jax_init_curves_name_the_committed_init(path):
+  """Each names the init it started from by the npz's sha256, and holds an
+  eval every 500 steps to 6,000 of the 20,000-step schedules."""
+  curve = json.loads(path.read_text())
+  assert curve['init'] == 'jax'
+  assert curve['init_sha256'] == hashlib.sha256(
+      JAX_INIT_NPZ.read_bytes()).hexdigest()
+  assert curve['partial'] and curve['steps'] == 20000
+  assert [row['step'] for row in curve['curve']] == list(
+      range(500, 6001, 500))
+
+
+def test_a_seed_repeats_its_rows_at_a_finer_eval_grain():
+  """The port's own init of seed 0 with an eval every 500 steps (the
+  evals touch no draw of the steps) repeats the seed-0 curve of evals
+  every 2,000 at its rows, bit for bit but the render delta and the
+  clock."""
+  fine = json.loads((REPO / 'nerfies_tpu_torch' / 'curves' /
+                     'quality_curve_h100_own_init_seed0.json').read_text())
+  coarse = json.loads(H100_CURVES[0].read_text())
+  assert 'init' not in fine and 'init' not in coarse
+  assert [row['step'] for row in fine['curve']] == list(range(500, 6001, 500))
+  rows = {row['step']: row for row in fine['curve']}
+  for row in coarse['curve']:
+    for key in set(row) - {'render_delta', 'wall_s'}:
+      assert rows[row['step']][key] == row[key], (row['step'], key)
 
 
 SPREAD_DIR = REPO / 'nerfies_tpu_torch' / 'curves' / 'spread'

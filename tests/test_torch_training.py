@@ -40,6 +40,7 @@ from tests.torch_parity import grad_check
 from tests.torch_parity import model_pair
 from tests.torch_parity import port_model
 from tests.torch_parity import ray_batch
+from tests import torch_step_parity
 
 _WARP_ALPHA = 1.5
 _LOSS_TYPES = ['log_svals', 'svals', 'jtj', 'div', 'det', 'log_det', 'nr']
@@ -440,131 +441,34 @@ def _spread_workload():
   return module
 
 
-class _Replay:
-  """jax.random for a module under test, whose named draws replay given
-  arrays in call order (each checked for its shape)."""
-
-  def __init__(self, **queues):
-    self.queues = {name: list(values) for name, values in queues.items()}
-
-  def __getattr__(self, name):
-    if name not in self.queues:
-      return getattr(random, name)
-
-    def replay(key, *args, shape=None, **kwargs):
-      del key, kwargs
-      value = self.queues[name].pop(0)
-      want = shape if shape is not None else args[0]
-      assert tuple(want) == value.shape, (name, want, value.shape)
-      return jnp.asarray(value)
-
-    return replay
-
-
 def _trained_state_step(route):
   """One step from the trained state of tests/data (written by
   scripts/training_spread_jax.py --save_state: JAX's params, Adam moments
   and warp alpha at step 3,000 of the spread workload's narrower model,
   and the next batch's first rays and background points) in both packages,
-  every draw of the step handed across: the stratified jitter and the
-  inverse-CDF u's from numpy into JAX's rendering module and the port's
-  mesh.draw, the background ids and noise into JAX's step and the port's.
+  every draw of the step handed across (tests/torch_step_parity.py).
 
-  Returns (JAX stats, JAX gradient, JAX update, port stats, port gradient,
-  port update, Adam count before the step); each gradient is recovered
-  from the first Adam moment, (mu' - b1 mu) / (1 - b1).
+  Returns (the step pair, the Adam count before the step).
   """
-  from jax import tree_util
-  from nerfies_tpu.ops import rendering as jax_rendering
-  from nerfies_tpu_torch.models import nerf
-  from nerfies_tpu_torch.parallel import mesh
-  from tests.torch_parity import jax_config
-  from tests.torch_parity import jax_model_and_shapes
   spread = _spread_workload()
-  data = spread.load_npz_tree(TRAINED_STATE)
+  data = interop.load_npz_tree(TRAINED_STATE)
   fields = dict(spread.STATE_MODEL_FIELDS)
   if route == 'fused':
     fields.update(use_bfloat16=True, use_fused_mlp=True, use_fused_warp=True)
-  config = spread.model_config(fields)
   ids = {key: tuple(int(i) for i in data['ids'][key])
          for key in ('appearance_ids', 'camera_ids', 'warp_ids')}
   ids.update(near=float(data['ids']['near']), far=float(data['ids']['far']))
-  kwargs = dict(ids, use_warp_jacobian=True, use_weights=True)
-  jmodel, _ = jax_model_and_shapes(
-      jax_config(**dataclasses.asdict(config)), **kwargs)
-  model, _ = nerf.construct_nerf(config, device='cpu', **kwargs)
-  assert model.fused_route == (route == 'fused')
   count = int(data['count'])
-  warp_alpha = float(data['warp_alpha'])
-  batch = data['batch']
-  rays, samples = batch['origins'].shape[0], config.num_coarse_samples
-  rng = np.random.RandomState(11)
-  coarse_u = rng.uniform(size=(rays, samples)).astype(np.float32)
-  fine_u = rng.uniform(size=(rays, config.num_fine_samples)).astype(
-      np.float32)
-  points = batch['background_points'].shape[0]
-  choice = rng.randint(0, len(ids['warp_ids']), (points, 1))
-  bg_ids = np.asarray(ids['warp_ids'])[choice]
-  bg_noise = rng.normal(size=(points, 3)).astype(np.float32)
   lr = spread.schedules.from_config(spread.LR_SCHEDULE)(count + 1)
   scalars = dict(learning_rate=float(lr),
                  elastic_loss_weight=spread.ELASTIC_WEIGHT,
                  background_loss_weight=spread.BACKGROUND_WEIGHT)
-  switches = dict(use_elastic_loss=True, elastic_reduce_method='weight',
-                  elastic_loss_type='log_svals', use_background_loss=True)
-
-  jparams = jax.tree.map(jnp.asarray, data['params'])
-  jstate = jax_training.create_train_state(
-      jparams, warp_alpha=warp_alpha).replace(
-          step=jnp.asarray(count, jnp.int32),
-          opt_state=optax.ScaleByAdamState(
-              count=jnp.asarray(count, jnp.int32),
-              mu=jax.tree.map(jnp.asarray, data['mu']),
-              nu=jax.tree.map(jnp.asarray, data['nu'])))
-  jax_step = jax.jit(functools.partial(jax_training.train_step, jmodel,
-                                       **switches))
-  with mock.patch.object(jax_rendering, 'random',
-                         _Replay(uniform=[coarse_u, fine_u])), \
-      mock.patch.object(jax_training, 'random', _Replay(
-          choice=[bg_ids.astype(np.uint32)], normal=[bg_noise])):
-    jnew, jstats, _ = jax_step(random.PRNGKey(0), jstate,
-                               jax.tree.map(jnp.asarray, batch),
-                               jax_training.ScalarParams(**scalars))
-
-  state = interop.train_state_from_jax(
-      data['params'], {'count': count, 'mu': data['mu'], 'nu': data['nu']},
-      step=count, warp_alpha=warp_alpha, device='cpu')
-  queue = [torch.from_numpy(coarse_u), torch.from_numpy(fine_u)]
-
-  def replay(fn, shape, generator, **kwargs):
-    del generator, kwargs
-    assert fn is torch.rand and tuple(shape) == tuple(queue[0].shape)
-    return queue.pop(0)
-
-  step = training.make_train_step(
-      model, configs.TrainConfig(batch_size=rays, **switches), device='cpu')
-  with mock.patch.object(mesh, 'draw', replay):
-    new_state, stats = step(
-        torch.Generator(), state, batch, training.ScalarParams(**scalars),
-        (torch.from_numpy(bg_ids.astype(np.int64)),
-         torch.from_numpy(bg_noise)))
-  assert not queue and new_state.opt_state.count == count + 1
-
-  def jax_recover(new, old):
-    return (np.asarray(new, np.float64) - 0.9 * np.asarray(old, np.float64)
-            ) / 0.1
-
-  jgrad = jax.tree.map(jax_recover, jnew.opt_state.mu, jstate.opt_state.mu)
-  jupdate = jax.tree.map(lambda a, b: np.asarray(a, np.float64)
-                         - np.asarray(b, np.float64), jnew.params, jparams)
-  grad = training._map(lambda new, old: (new.double() - 0.9 * old.double())
-                       / 0.1, new_state.opt_state.mu, state.opt_state.mu)
-  update = training._map(lambda a, b: a.detach().double() - b.detach().double(),
-                         new_state.params, state.params)
-  want = {'/'.join(k.key for k in path): float(v)
-          for path, v in tree_util.tree_flatten_with_path(jstats)[0]}
-  got = {'/'.join(path): float(v) for path, v in fused_mlp.flatten_tree(stats)}
-  return want, jgrad, jupdate, got, grad, update, count
+  step = torch_step_parity.step_pair(
+      spread.model_config(fields), ids, data['params'], data['batch'],
+      scalars, warp_alpha=float(data['warp_alpha']))
+  pair = step(count, data['mu'], data['nu'])
+  assert pair.fused_route == (route == 'fused')
+  return pair, count
 
 
 @pytest.mark.parametrize('route', ['plain', 'fused'])
@@ -576,15 +480,7 @@ def test_step_from_a_trained_state_matches_jax(route):
   0.9999, norm ratio 1 +- 1e-3), the fused route at
   tests/test_fused_train.py's (rtol 0.05, atol 5e-4; cosine > 0.95, norm
   ratio in (0.7, 1.4))."""
-  want, jgrad, jupdate, got, grad, update, count = _trained_state_step(route)
+  pair, count = _trained_state_step(route)
   assert count == _spread_workload().STOP_AT
-  assert want['fine/metric/psnr'] > 20.0  # a fitted state, not an init
-  assert set(got) == set(want)
-  rtol, atol = (1e-4, 1e-6) if route == 'plain' else (0.05, 5e-4)
-  limits = (dict(cos_floor=0.9999, ratio=(1 - 1e-3, 1 + 1e-3))
-            if route == 'plain' else {})
-  for name, value in want.items():
-    np.testing.assert_allclose(got[name], value, rtol=rtol, atol=atol,
-                               err_msg=name)
-  grad_check(grad, jgrad, 'gradient', **limits)
-  grad_check(update, jupdate, 'update', **limits)
+  assert pair.jax_stats['fine/metric/psnr'] > 20.0  # a fitted state
+  torch_step_parity.check_step(pair, route)
