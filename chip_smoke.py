@@ -126,8 +126,14 @@ non-zero exit at the first phase that fails:
            the culled path's warp at 262,144 and 655,360). A frame is
            profiled unculled and culled, and culled at 8 times the chunk:
            wall and device-busy ms, idle share, device ops, largest ops.
-  capture  render 12 frames of 480x272 of the synthetic sphere on an orbit,
-           save them as PNGs and write their COLMAP binary model (4,096
+  capture  decode the committed PNG and JPEG fixtures
+           (tests/data/image_fixtures/: palette, tRNS, sub-byte, Adam7,
+           CMYK, YCCK, RGB) with image_utils.load_image and require cv2's
+           pixels, recorded in tests/data/image_fixtures.npz, bit for bit;
+           render 12 frames of 480x272 of the synthetic sphere on an orbit,
+           save them as PNGs, every third Adam7-interlaced by a writer of
+           this script's own (each read back equal to the array written),
+           and write their COLMAP binary model (4,096
            points, each seen by 2 frames) with the port's SceneManager;
            run nerfies_tpu_torch.process_capture.main on them with the JAX
            CLI's defaults (blur keep 95, scales 1/2/4/8, val 0.2) and 6
@@ -221,6 +227,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -352,6 +359,12 @@ KERNEL_SOURCES = {
 # CLI on CLI_GIN; the orbit-mild path rendered.
 CAPTURE_FRAMES = 12
 CAPTURE_POINTS = 4096
+# Every CAPTURE_ADAM7_EVERY-th frame is written Adam7-interlaced.
+CAPTURE_ADAM7_EVERY = 3
+# The decoders' fixtures and cv2's pixels of them
+# (scripts/write_image_fixtures.py).
+IMAGE_FIXTURES = (pathlib.Path(__file__).resolve().parent / 'tests' / 'data'
+                  / 'image_fixtures')
 CAPTURE_ORBIT_FRAMES = 6
 CAPTURE_STEPS = 3
 # The quality phase: quality_bench at the bench width on its textured
@@ -1820,9 +1833,49 @@ def _render_launches(frames, num_rays, chunk=CHUNK):
   return frames * 2 * -(-num_rays // chunk)
 
 
+# Adam7's passes: (first row, first column, row step, column step).
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def adam7_png(rgb):
+  """An Adam7-interlaced 8-bit RGB PNG of `rgb`, every row filter 0: a
+  writer apart from the port's encoder, which writes no interlaced file."""
+  def chunk(kind, body):
+    return (len(body).to_bytes(4, 'big') + kind + body
+            + (zlib.crc32(kind + body) & 0xFFFFFFFF).to_bytes(4, 'big'))
+  height, width = rgb.shape[:2]
+  rows = b''.join(b'\x00' + row.tobytes()
+                  for r0, c0, dr, dc in _ADAM7
+                  for row in rgb[r0::dr, c0::dc] if row.size)
+  header = (width.to_bytes(4, 'big') + height.to_bytes(4, 'big')
+            + bytes([8, 2, 0, 0, 1]))
+  return (b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', header)
+          + chunk(b'IDAT', zlib.compress(rows)) + chunk(b'IEND', b''))
+
+
+def check_image_fixtures():
+  """Every committed fixture decodes to cv2's recorded pixels, bit for
+  bit (dtype, shape, values). Returns how many."""
+  with np.load(IMAGE_FIXTURES.with_suffix('.npz')) as recorded:
+    names = sorted(recorded.files)
+    check(names == sorted(p.name for p in IMAGE_FIXTURES.iterdir()),
+          f'the fixtures {names} and their files differ')
+    for name in names:
+      want = recorded[name]
+      got = image_utils.load_image(IMAGE_FIXTURES / name)
+      check(got.dtype == want.dtype and got.shape == want.shape
+            and np.array_equal(got, want),
+            f'{name}: {got.dtype} {got.shape} is not cv2\'s {want.dtype} '
+            f'{want.shape} bit for bit')
+  return len(names)
+
+
 def write_colmap_capture(frames_dir, model_dir, count, image_size):
-  """`count` frames of the synthetic sphere on an orbit, as PNGs, and
-  their COLMAP model (binary), written with the port's SceneManager."""
+  """`count` frames of the synthetic sphere on an orbit, as PNGs (every
+  CAPTURE_ADAM7_EVERY-th Adam7-interlaced, each checked to read back as
+  written), and their COLMAP model (binary), written with the port's
+  SceneManager."""
   frames_dir.mkdir(parents=True)
   scene = SceneManager(model_dir)
   width, height = image_size
@@ -1835,9 +1888,14 @@ def write_colmap_capture(frames_dir, model_dir, count, image_size):
     cam = synthetic.make_orbit_camera(2 * np.pi * i / count,
                                       image_size=image_size)
     name = f'{i:04d}'
-    image_utils.save_image(
-        frames_dir / f'{name}.png',
-        image_utils.image_to_uint8(synthetic.render_sphere_image(cam)))
+    rgb = image_utils.image_to_uint8(synthetic.render_sphere_image(cam))
+    path = frames_dir / f'{name}.png'
+    if i % CAPTURE_ADAM7_EVERY == 0:
+      path.write_bytes(adam7_png(rgb))
+    else:
+      image_utils.save_image(path, rgb)
+    check(np.array_equal(image_utils.load_image(path), rgb),
+          f'{path.name} does not read back as written')
     # A COLMAP pose is world-to-camera: R = orientation, t = -R position.
     scene.images[i + 1] = Image(
         i + 1, f'{name}.png', 1,
@@ -1860,6 +1918,10 @@ def phase_capture(work, device=torch.device('cuda', 0)):
   frames and a COLMAP model -> process_capture -> the training CLI ->
   render_video. Returns the launches of the training and the render."""
   card = card_label()
+  start = time.perf_counter()
+  fixtures = check_image_fixtures()
+  print(f'  [{card}] {fixtures} PNG and JPEG fixtures decode to cv2\'s '
+        f'pixels bit for bit ({time.perf_counter() - start:.2f} s)')
   base = work / 'capture'
   frames_dir, model_dir, dataset = (base / 'frames', base / 'model',
                                     base / 'dataset')

@@ -3,21 +3,25 @@
 Port of nerfies_tpu/image_utils.py without OpenCV. The results are those
 of the JAX module, whose IO and resizes are cv2's:
 
-  - PNG files are encoded and decoded here with zlib and numpy: 8- and
-    16-bit samples (big-endian on disk) in gray, gray+alpha, RGB and RGBA.
-    The encoder writes the bytes cv2 writes; the decoder reads all five
-    row filters. Interlaced, palette and sub-byte PNGs raise
-    ValueError. In memory the channels are RGB(A), as `load_image` returns
-    them in the JAX package; gray+alpha decodes to RGBA with the gray
-    value repeated, as cv2's IMREAD_UNCHANGED gives it.
+  - PNG files are encoded and decoded here with zlib and numpy. The
+    encoder writes the bytes cv2 writes for 8- and 16-bit gray,
+    gray+alpha, RGB and RGBA. The decoder reads every PNG that cv2 reads
+    (every colour type at every bit depth the format allows, PLTE and
+    tRNS, Adam7 interlacing, the five row filters) to the pixels cv2's
+    IMREAD_UNCHANGED gives, by libpng's transforms as OpenCV sets them:
+    sub-byte gray scaled to 8 bits, palettes expanded to RGB (RGBA with
+    tRNS), RGB with tRNS given alpha, gray+alpha repeated into RGBA, a
+    gray tRNS ignored. What cv2 refuses raises ValueError. In memory the
+    channels are RGB(A), as `load_image` returns them in the JAX package.
   - JPEG files are read (never written) by `jpeg.decode_jpeg`, bit for bit
-    libjpeg's decoding that cv2 does.
+    libjpeg's decoding that cv2 does: gray, YCbCr, RGB, CMYK and YCCK.
   - Resizes follow cv2's interpolation rules: an integer downsampling is
-    INTER_AREA's block mean, an upsampling INTER_LINEAR (half-pixel
-    centres, edges replicated), a non-integer downsampling INTER_AREA's
-    fractional coverage weights, depth INTER_NEAREST. Integer images are
-    rounded to nearest, where cv2 rounds fixed-point sums: the two may
-    differ by 1.
+    INTER_AREA's block mean (float32 summed in cv2's order, its SIMD
+    order included, so bit for bit), an upsampling INTER_LINEAR
+    (half-pixel centres, edges replicated), a non-integer downsampling
+    INTER_AREA's fractional coverage weights, depth INTER_NEAREST.
+    Integer images are rounded to nearest, where cv2 rounds fixed-point
+    sums: the two may differ by 1.
 """
 
 import math
@@ -33,9 +37,16 @@ UINT8_MAX = 255
 UINT16_MAX = 65535
 
 _PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
-# PNG colour type -> channels: gray, RGB, gray+alpha, RGBA.
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-_PNG_COLOR_TYPES = {v: k for k, v in _PNG_CHANNELS.items()}
+# PNG colour type -> channels on disk: gray, RGB, palette, gray+alpha,
+# RGBA, and the bit depths the format allows each.
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# The colour type the encoder writes for a channel count.
+_PNG_COLOR_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}
+# Adam7's passes: (first row, first column, row step, column step).
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 # ------------------------------------------------------------------ PNG
@@ -95,57 +106,132 @@ def _unfilter_wavefront(filters: np.ndarray, rows: np.ndarray,
   return out[1:, 1:].astype(np.uint8).reshape(height, width * bpp)
 
 
+def _png_samples(raw: np.ndarray, offset: int, height: int, width: int,
+                 channels: int, depth: int):
+  """Unfilters one image (or one Adam7 pass) of `height` rows from the
+  inflated stream at `offset`. Returns its (height, width, channels)
+  samples, uint8 or uint16, and the offset after it."""
+  bpp = max(1, channels * depth // 8)  # the filters' byte distance
+  stride = (width * channels * depth + 7) // 8
+  end = offset + height * (stride + 1)
+  if raw.size < end:
+    raise ValueError('truncated PNG image data')
+  block = raw[offset:end].reshape(height, stride + 1)
+  filters, rows = block[:, 0], block[:, 1:]
+  if filters.max(initial=0) > 4:
+    raise ValueError(f'PNG filter type {filters.max()} is not defined')
+  if filters.max(initial=0) <= 2:
+    rows = _unfilter_rows(filters, rows, bpp)
+  else:
+    rows = _unfilter_wavefront(filters, rows, bpp)
+  if depth == 16:
+    samples = rows.view('>u2').astype(np.uint16)
+  elif depth == 8:
+    samples = rows
+  else:  # 1, 2 or 4 bits, one channel, packed from the high bit down
+    per_byte = 8 // depth
+    x = np.arange(width)
+    shift = (8 - depth * (x % per_byte + 1)).astype(np.uint8)
+    samples = (rows[:, x // per_byte] >> shift) & ((1 << depth) - 1)
+  return samples.reshape(height, width, channels), end
+
+
 def decode_png(data: bytes) -> np.ndarray:
-  """PNG bytes -> (H, W) or (H, W, C) uint8 / uint16 samples, file order.
+  """PNG bytes -> what cv2.imdecode(IMREAD_UNCHANGED) gives (libpng with
+  OpenCV's transforms), in RGB(A) order: (H, W) gray or (H, W, 3 or 4),
+  uint8 or uint16.
+
+  Every colour type at every bit depth it allows, interlaced or not. As
+  in cv2: gray below 8 bits scales to 8 (1 bit to 0 and 255); gray+alpha
+  repeats the gray value into RGBA; a palette expands to RGB, or to RGBA
+  with a tRNS chunk (entries past its end opaque, indices past the
+  palette black); RGB with a tRNS chunk gains an alpha of 0 where a pixel
+  equals its colour; gray ignores a tRNS chunk. A tRNS chunk that libpng
+  calls invalid (a wrong length, after the image data, on a palette
+  before its PLTE or longer than it) is ignored, as libpng ignores it.
 
   Raises:
-    ValueError: not a PNG, or one this decoder does not read (palette,
-      interlaced, bit depth other than 8 or 16, a tRNS chunk).
+    ValueError: what cv2 does not read either: not a PNG, an IHDR that
+      the format does not define, a palette image without a PLTE chunk,
+      an undefined filter type, truncated image data.
   """
   if data[:8] != _PNG_SIGNATURE:
     raise ValueError('not a PNG file')
   pos, header, idat = 8, None, []
+  palette = trns = None
+  trns_after_plte = False  # libpng drops a palette's tRNS before its PLTE
   while pos + 8 <= len(data):
     length, kind = struct.unpack('>I4s', data[pos:pos + 8])
     body = data[pos + 8:pos + 8 + length]
     pos += 12 + length
     if kind == b'IHDR':
       header = struct.unpack('>IIBBBBB', body)
+    elif kind == b'PLTE' and palette is None and not idat:
+      palette = body
+    elif kind == b'tRNS' and trns is None and not idat:
+      trns, trns_after_plte = body, palette is not None
     elif kind == b'IDAT':
       idat.append(body)
-    elif kind == b'tRNS':
-      raise ValueError('PNG transparency chunks (tRNS) are not supported')
     elif kind == b'IEND':
       break
   if header is None:
     raise ValueError('PNG without an IHDR chunk')
-  width, height, depth, color, _, _, interlace = header
-  if color not in _PNG_CHANNELS:
-    raise ValueError(f'PNG colour type {color} is not supported (palette '
-                     'images are not read)')
-  if depth not in (8, 16):
-    raise ValueError(f'PNG bit depth {depth} is not supported')
-  if interlace:
-    raise ValueError('interlaced PNGs are not supported')
+  width, height, depth, color, compression, filter_method, interlace = header
+  if depth not in _PNG_DEPTHS.get(color, ()):
+    raise ValueError(f'PNG colour type {color} at bit depth {depth} is not '
+                     'defined')
+  if not width or not height or compression or filter_method or (
+      interlace > 1):
+    raise ValueError(f'PNG header {header} is not defined')
   channels = _PNG_CHANNELS[color]
-  bpp = channels * depth // 8
-  stride = width * bpp
-  raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
-  if raw.size < height * (stride + 1):
+  inflate = zlib.decompressobj()
+  try:
+    raw = np.frombuffer(inflate.decompress(b''.join(idat)), np.uint8)
+  except zlib.error as e:
+    raise ValueError(f'corrupt PNG image data: {e}') from None
+  if not inflate.eof:  # libpng refuses a stream that stops short
     raise ValueError('truncated PNG image data')
-  raw = raw[:height * (stride + 1)].reshape(height, stride + 1)
-  filters, rows = raw[:, 0], raw[:, 1:]
-  if filters.max(initial=0) > 4:
-    raise ValueError(f'PNG filter type {filters.max()} is not defined')
-  if filters.max(initial=0) <= 2:
-    pixels = _unfilter_rows(filters, rows, bpp)
+  if interlace:
+    # Adam7: seven sub-images, each filtered on its own; a pass the image
+    # is too small to reach has no rows at all.
+    samples = np.empty((height, width, channels),
+                       np.uint16 if depth == 16 else np.uint8)
+    offset = 0
+    for row0, col0, row_step, col_step in _ADAM7:
+      rows = len(range(row0, height, row_step))
+      cols = len(range(col0, width, col_step))
+      if rows and cols:
+        samples[row0::row_step, col0::col_step], offset = _png_samples(
+            raw, offset, rows, cols, channels, depth)
   else:
-    pixels = _unfilter_wavefront(filters, rows, bpp)
-  if depth == 16:
-    pixels = pixels.view('>u2').astype(np.uint16)
-  if channels == 1:
-    return pixels.reshape(height, width)
-  return pixels.reshape(height, width, channels)
+    samples, _ = _png_samples(raw, 0, height, width, channels, depth)
+
+  if color == 3:
+    if not palette or len(palette) % 3 or len(palette) > 3 * 256:
+      raise ValueError('palette PNG without a valid PLTE chunk')
+    # libpng keeps 2^depth entries at most; an index past them is black.
+    entries = min(len(palette) // 3, 1 << depth)
+    table = np.zeros((256, 4), np.uint8)
+    table[:, 3] = UINT8_MAX
+    table[:entries, :3] = np.frombuffer(palette, np.uint8)[
+        :3 * entries].reshape(entries, 3)
+    if trns and trns_after_plte and len(trns) <= entries:
+      table[:len(trns), 3] = np.frombuffer(trns, np.uint8)
+      return table[samples[..., 0]]
+    return table[samples[..., 0], :3]
+  if color == 0:
+    if depth < 8:  # png_set_expand_gray_1_2_4_to_8
+      return samples[..., 0] * np.uint8(UINT8_MAX // ((1 << depth) - 1))
+    return samples[..., 0]
+  if color == 4:
+    return samples[..., [0, 0, 0, 1]]
+  if color == 2 and trns and len(trns) == 6:
+    key = np.frombuffer(trns, '>u2').astype(samples.dtype)  # low byte at 8
+    opaque = np.iinfo(samples.dtype).max
+    alpha = np.where((samples == key).all(axis=-1), 0, opaque)
+    return np.concatenate([samples, alpha[..., None].astype(samples.dtype)],
+                          axis=-1)
+  return samples
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -302,6 +388,16 @@ def _resize_area(image: np.ndarray, out_height: int,
     for k in range(area - area % 4, area):
       total = total + terms[:, :, k]
     mean = total * work(1.0 / area)
+    channels = image.shape[2] if image.ndim == 3 else 1
+    if work == np.float32 and sy == sx == 2 and channels in (1, 4):
+      # cv2's SIMD path for this case (ResizeAreaFastVec_SIMD_32f, 4
+      # lanes) sums (a0 + a1) + (b0 + b1) over the first multiple of 4
+      # outputs of each row; the rest take the order above.
+      pairs = ((terms[:, :, 0] + terms[:, :, 1])
+               + (terms[:, :, 2] + terms[:, :, 3])) * work(0.25)
+      rows = mean.reshape(out_height, -1)
+      covered = rows.shape[1] - rows.shape[1] % 4
+      rows[:, :covered] = pairs.reshape(out_height, -1)[:, :covered]
     return _cv_shape(_as_dtype(mean, image.dtype), image)
   wy = _area_weights(height, out_height)
   wx = _area_weights(width, out_width)
@@ -451,22 +547,20 @@ def _check_png(path) -> None:
 def load_image(path) -> np.ndarray:
   """Loads a PNG as uint8 / uint16 gray, RGB or RGBA, or a JPEG as uint8
   gray or RGB: what the JAX package's cv2.imdecode(IMREAD_UNCHANGED) gives,
-  in RGB. The format is read from the content, as cv2 reads it."""
+  in RGB. The format is read from the content, as cv2 reads it; a file
+  that is not read raises ValueError naming the path and the reason."""
   with open(path, 'rb') as f:
     data = f.read()
   if data.startswith(_PNG_SIGNATURE):
-    image = decode_png(data)
+    decode = decode_png
   elif jpeg.is_jpeg(data):
-    try:
-      return jpeg.decode_jpeg(data)
-    except ValueError as e:
-      raise ValueError(f'{path}: {e}') from None
+    decode = jpeg.decode_jpeg
   else:
     raise ValueError(f'neither a PNG nor a JPEG: {path}')
-  if image.ndim == 3 and image.shape[-1] == 2:
-    # Gray+alpha decodes to RGBA, as cv2's IMREAD_UNCHANGED gives it.
-    image = image[..., [0, 0, 0, 1]]
-  return image
+  try:
+    return decode(data)
+  except ValueError as e:
+    raise ValueError(f'{path}: {e}') from None
 
 
 def save_image(path, image: np.ndarray) -> None:

@@ -17,11 +17,21 @@ arithmetic:
     is 2 or less) and h1v2, box for any other integer ratio; a
     component's edge samples repeat past its downsampled width and
     height;
-  - `jdcolor.c`'s YCbCr -> RGB tables (16-bit fixed point).
+  - the colour space by `default_decompress_parms`' rule (jdapimin.c):
+    one component is gray; three are YCbCr under a JFIF marker, RGB under
+    an Adobe marker of transform 0 (YCbCr under any other), else RGB if
+    the component ids are R, G, B and YCbCr otherwise; four are CMYK
+    under no Adobe marker or transform 0, YCCK under any other transform;
+  - `jdcolor.c`'s YCbCr -> RGB tables (16-bit fixed point); RGB planes
+    copied through; YCCK -> CMYK as `ycck_cmyk_convert` (C, M, Y = 255 -
+    the YCbCr -> RGB result, K copied); then OpenCV's CMYK -> BGR
+    (`icvCvt_CMYK2BGR_8u_C4C3R`: X' = K - ((255 - X) * K >> 8)), since
+    cv2 asks libjpeg for CMYK and converts it itself.
 
-Gray images decode to (H, W) uint8, colour ones to (H, W, 3) uint8 RGB.
-Arithmetic coding, lossless and 12-bit JPEGs, and any colour space but
-gray and YCbCr (RGB, CMYK, YCCK) raise ValueError.
+Gray images decode to (H, W) uint8, colour ones (RGB, YCbCr, CMYK, YCCK)
+to (H, W, 3) uint8 RGB, as cv2 gives them. Arithmetic-coded, lossless,
+hierarchical and 12-bit JPEGs raise ValueError naming their kind: no
+encoder at hand (cv2, Pillow) writes one to test against.
 
 Everything after the entropy decoding runs over all blocks at once. The
 Huffman decoding is the one sequential loop: each table's symbol, run,
@@ -624,7 +634,7 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
   return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
-def _pixels(frame: _Frame) -> np.ndarray:
+def _pixels(frame: _Frame, space: str) -> np.ndarray:
   planes = []
   for c in frame.components:
     if c.quant is None:
@@ -633,25 +643,47 @@ def _pixels(frame: _Frame) -> np.ndarray:
     samples = _idct(blocks.reshape(-1, 64), c.quant)
     samples = samples.reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3)
     plane = samples.reshape(c.bh * 8, c.bw * 8)[:c.height, :c.width]
-    planes.append(_upsample(plane, c, frame))
-  if len(planes) == 1:
+    planes.append(_upsample(plane, c, frame).astype(np.int64))
+  if space == 'gray':
     return planes[0].astype(np.uint8)
-  return _ycc_to_rgb(*(p.astype(np.int64) for p in planes))
+  if space == 'rgb':
+    return np.stack(planes, axis=-1).astype(np.uint8)
+  if space == 'ycc':
+    return _ycc_to_rgb(*planes)
+  if space == 'ycck':
+    # jdcolor.c's ycck_cmyk_convert: C, M, Y = 255 - the YCbCr -> RGB
+    # result, K copied.
+    cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int64)
+    planes = [cmy[..., 0], cmy[..., 1], cmy[..., 2], planes[3]]
+  return _cmyk_to_rgb(*planes)
+
+
+def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+  """OpenCV's icvCvt_CMYK2BGR_8u_C4C3R on libjpeg's JCS_CMYK output, in
+  RGB order: X' = K - ((255 - X) * K >> 8) for X in C, M, Y."""
+  return np.stack([k - (((255 - x) * k) >> 8) for x in (c, m, y)],
+                  axis=-1).astype(np.uint8)
 
 
 def _color_space(frame: _Frame) -> str:
-  """libjpeg's default_decompress_parms guess, for 1 and 3 components."""
+  """libjpeg's default_decompress_parms (jdapimin.c): the colour space of
+  a frame of 1, 3 or 4 components."""
   n = len(frame.components)
   if n == 1:
     return 'gray'
-  if n != 3:
-    raise ValueError(f'{n}-component (CMYK/YCCK) JPEGs are not supported')
-  if frame.jfif:
-    return 'ycc'
-  if frame.adobe_transform is not None:
-    return 'rgb' if frame.adobe_transform == 0 else 'ycc'
-  ids = [c.cid for c in frame.components]
-  return 'rgb' if ids == [82, 71, 66] else 'ycc'
+  if n == 3:
+    if frame.jfif:
+      return 'ycc'
+    if frame.adobe_transform is not None:
+      return 'rgb' if frame.adobe_transform == 0 else 'ycc'
+    ids = [c.cid for c in frame.components]
+    return 'rgb' if ids == [82, 71, 66] else 'ycc'
+  if n == 4:
+    if frame.adobe_transform is not None and frame.adobe_transform != 0:
+      return 'ycck'
+    return 'cmyk'
+  raise ValueError(f'{n}-component JPEGs are not supported (libjpeg has no '
+                   'colour conversion for them)')
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -662,6 +694,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
   frame = _Frame()
   i = 2
   seen_frame = False
+  space = None
   while True:
     # Markers may be preceded by any number of FF fill bytes.
     while i < len(data) and data[i] == 0xFF and i + 1 < len(data) and (
@@ -687,9 +720,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
       if not seen_frame:
         raise ValueError('corrupt JPEG: a scan before the frame header')
       # libjpeg settles the colour space when it reaches the first scan.
-      if _color_space(frame) == 'rgb':
-        raise ValueError('RGB (untransformed) JPEGs are not supported, '
-                         'only gray and YCbCr')
+      if space is None:
+        space = _color_space(frame)
       i = _decode_scan(frame, data, i)
       continue
     if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
@@ -712,4 +744,4 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     i += length
   if not seen_frame:
     raise ValueError('corrupt JPEG: no frame header')
-  return _pixels(frame)
+  return _pixels(frame, space or _color_space(frame))

@@ -8,12 +8,14 @@ process_capture writes equal file by file. ffmpeg, ffprobe and colmap are
 fake executables, as in tests/test_video.py and tests/test_colmap.py.
 """
 
+import io
 import json
 import stat
 import sys
 
 import cv2
 import numpy as np
+from PIL import Image
 import pytest
 
 from nerfies_tpu import capture as jax_capture
@@ -31,6 +33,7 @@ from nerfies_tpu_torch import video
 from nerfies_tpu_torch.datasets import synthetic
 from tests.test_capture import _face_landmark_points
 from tests.test_torch_colmap import make_colmap_scene
+from tests.test_torch_image_decode import fixtures as image_fixtures
 
 # --------------------------------------------------------- cv2 arithmetic
 
@@ -281,6 +284,50 @@ def test_process_capture_cli_reads_jpeg_frames(tmp_path):
   jax_frames = {p.stem: jax_image_utils.load_image(p)
                 for p in sorted(frames.iterdir())}
   assert len(jax_frames) == len(images)
+  want = jax_capture.process_capture(colmap_dir, jax_frames,
+                                     tmp_path / 'jax', val_fraction=0.2,
+                                     blur_keep_percentile=95.0,
+                                     orbit_frames=5)
+  _assert_datasets_equal(got, want)
+
+
+def test_process_capture_cli_reads_every_frame_format(tmp_path):
+  """Frames from photo editors, PNG optimisers and screenshot tools: palette
+  PNGs (opaque and with tRNS), RGB with tRNS, Adam7-interlaced RGB, CMYK
+  and RGB (untransformed) JPEGs, decoded as JAX's cv2 decodes them."""
+  colmap_dir, images, _ = _capture_inputs(tmp_path, 'port')
+  frames = tmp_path / 'frames'
+  frames.mkdir()
+
+  def palette(rgb, **options):
+    out = io.BytesIO()
+    Image.fromarray(rgb).quantize(256).save(out, format='PNG', **options)
+    return out.getvalue()
+
+  writers = [
+      ('.png', palette),
+      ('.png', lambda rgb: palette(rgb, transparency=0)),
+      ('.png', lambda rgb: image_fixtures.png_bytes(rgb, 2, 8,
+                                                    trns=rgb[0, 0])),
+      ('.png', lambda rgb: image_fixtures.png_bytes(rgb, 2, 8,
+                                                    interlace=True)),
+      ('.jpg', lambda rgb: image_fixtures.pillow_jpeg(rgb, 'CMYK',
+                                                      quality=95)),
+      ('.jpeg', lambda rgb: image_fixtures.pillow_jpeg(
+          rgb, 'RGB', quality=95, keep_rgb=True)),
+  ]
+  assert len(images) >= len(writers)
+  for i, (name, image) in enumerate(images.items()):
+    suffix, write = writers[i % len(writers)]
+    (frames / f'{name}{suffix}').write_bytes(
+        write(image_utils.image_to_uint8(image)))
+  got = process_capture.main(['--colmap_dir', str(colmap_dir),
+                              '--images_dir', str(frames),
+                              '--output_dir', str(tmp_path / 'port'),
+                              '--orbit_frames', '5'])
+  jax_frames = {p.stem: jax_image_utils.load_image(p)
+                for p in sorted(frames.iterdir())}
+  assert {f.shape[-1] for f in jax_frames.values()} == {3, 4}
   want = jax_capture.process_capture(colmap_dir, jax_frames,
                                      tmp_path / 'jax', val_fraction=0.2,
                                      blur_keep_percentile=95.0,

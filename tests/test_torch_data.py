@@ -11,6 +11,7 @@ writes JAX's scene. Inputs come from numpy seeds.
 
 import json
 import math
+import shutil
 import struct
 import zlib
 
@@ -35,6 +36,7 @@ from nerfies_tpu_torch import training
 from nerfies_tpu_torch.datasets import core
 from nerfies_tpu_torch.datasets import synthetic
 from nerfies_tpu_torch.ops import fused_mlp
+from tests.test_torch_image_decode import fixtures as image_fixtures
 
 
 def _image(shape, dtype, seed=0):
@@ -123,26 +125,34 @@ def test_pillow_pngs_decode(tmp_path):
                                   jax_image_utils.load_image(path))
 
 
-def _with_ihdr(data, **fields):
-  names = ('width', 'height', 'depth', 'color', 'compression', 'filter',
-           'interlace')
-  values = dict(zip(names, struct.unpack('>IIBBBBB', data[16:29])))
-  values.update(fields)
-  body = struct.pack('>IIBBBBB', *(values[n] for n in names))
-  crc = struct.pack('>I', zlib.crc32(b'IHDR' + body) & 0xFFFFFFFF)
-  return data[:16] + body + crc + data[33:]
+def _with_idat(data, stream):
+  """`data` (one IDAT chunk, as encode_png writes it for a small image)
+  with its image data replaced by `stream`."""
+  start = data.index(b'IDAT') - 4
+  end = start + 12 + struct.unpack('>I', data[start:start + 4])[0]
+  crc = struct.pack('>I', zlib.crc32(b'IDAT' + stream) & 0xFFFFFFFF)
+  return (data[:start] + struct.pack('>I', len(stream)) + b'IDAT' + stream
+          + crc + data[end:])
 
 
 def test_unsupported_pngs_raise(tmp_path):
-  data = image_utils.encode_png(_image((8, 8, 3), np.uint8))
-  with pytest.raises(ValueError, match='interlaced'):
-    image_utils.decode_png(_with_ihdr(data, interlace=1))
-  path = tmp_path / 'palette.png'
-  Image.fromarray(_image((8, 8), np.uint8)).convert('P').save(path)
-  with pytest.raises(ValueError, match='palette'):
-    image_utils.load_image(path)
+  """What libpng refuses raises too (cv2 returns None for each). Interlaced
+  and palette PNGs decode: tests/test_torch_image_decode.py."""
+  image = _image((8, 8, 3), np.uint8)
+  data = image_utils.encode_png(image)
   with pytest.raises(ValueError, match='not a PNG'):
     image_utils.decode_png(b'GIF89a' + data[6:])
+  rows = np.concatenate([np.full((8, 1), 5, np.uint8),
+                         image.reshape(8, 24)], axis=1).tobytes()
+  for name, stream, reason in (
+      ('filter', zlib.compress(rows), 'filter type 5 is not defined'),
+      ('truncated', zlib.compress(rows[:-24]), 'truncated'),
+      ('cut', zlib.compress(rows)[:-4], 'truncated')):
+    path = tmp_path / f'{name}.png'
+    path.write_bytes(_with_idat(data, stream))
+    assert cv2.imread(str(path), cv2.IMREAD_UNCHANGED) is None
+    with pytest.raises(ValueError, match=f'{name}.png.*{reason}'):
+      image_utils.load_image(path)
 
 
 _RESIZES = {
@@ -169,6 +179,22 @@ def test_resizes_match_cv2(name, dtype):
     assert got.shape == want.shape and got.dtype == want.dtype, name
     err = np.abs(got.astype(np.float64) - want.astype(np.float64)).max()
     assert err <= (1 if dtype == np.uint8 else 1e-5), (name, shape, err)
+
+
+@pytest.mark.parametrize('channels', [1, 3, 4])
+def test_float32_halving_equals_cv2_bit_for_bit(channels):
+  """INTER_AREA at 2x on float32, the capture pyramid's step: cv2 sums
+  one or four channels in another order (its SIMD path) than three; an
+  RGBA frame's pyramid writes cv2's bytes only if both are reproduced."""
+  for height, width in ((48, 64), (6, 14), (10, 6), (2, 2)):
+    image = _image((height, width, channels), np.float32, seed=width)
+    if channels == 1:
+      image = image[..., 0]
+    want = cv2.resize(image, (width // 2, height // 2),
+                      interpolation=cv2.INTER_AREA)
+    got = image_utils.downsample_image(image, 2)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize('scale', [0.5, 0.25, 0.3, 0.77, 2.0, 1.7])
@@ -328,6 +354,29 @@ def test_point_and_image_iterators_are_bit_identical(scene_dir):
   want_iter = want.create_iterator(want.val_ids, batch_size=0, shuffle=True)
   for _ in range(3):
     _assert_trees_equal(next(got_iter), next(want_iter))
+
+
+def test_sources_read_palette_and_adam7_frames_as_jax(scene_dir, tmp_path):
+  """rgb/1x of another tool's PNGs: palette (Pillow's quantiser, opaque and
+  with tRNS) and Adam7-interlaced RGB; load_rgb and get_item as JAX's."""
+  scene = tmp_path / 'scene'
+  shutil.copytree(scene_dir, scene)
+  paths = sorted((scene / 'rgb' / '1x').glob('*.png'))
+  for i, path in enumerate(paths):
+    rgb = jax_image_utils.load_image(path)
+    if i % 3 == 0:
+      Image.fromarray(rgb).quantize(256).save(path)
+    elif i % 3 == 1:
+      Image.fromarray(rgb).quantize(64).save(path, transparency=0)
+    else:
+      path.write_bytes(image_fixtures.png_bytes(rgb, 2, 8, interlace=True))
+  assert jax_image_utils.load_image(paths[1]).shape[-1] == 4
+  got, want = _sources(scene)
+  for item_id in want.all_ids:
+    rgb = want.load_rgb(item_id)
+    assert rgb.shape == (24, 40, 3)
+    np.testing.assert_array_equal(got.load_rgb(item_id), rgb)
+    _assert_trees_equal(got.get_item(item_id), want.get_item(item_id))
 
 
 def test_port_writer_writes_the_jax_scene(scene_dir, tmp_path):

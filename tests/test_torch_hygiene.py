@@ -57,6 +57,19 @@ def test_no_jax_imports(path):
   assert not bad, f'{path} imports {bad}'
 
 
+# The scripts that hold the port's decoders to cv2: cv2 and Pillow, no JAX.
+CV2_SCRIPTS = [REPO / 'scripts' / name for name in (
+    'time_jpeg_decode.py', 'time_png_decode.py', 'write_image_fixtures.py')]
+
+
+@pytest.mark.parametrize('path', CV2_SCRIPTS,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_cv2_scripts_import_no_jax(path):
+  bad = sorted(set(_imported_roots(path))
+               & (set(FORBIDDEN) - {'cv2', 'PIL'}))
+  assert not bad, f'{path} imports {bad}'
+
+
 @pytest.mark.parametrize('path', NOTEBOOKS,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_notebooks_import_no_jax(path):

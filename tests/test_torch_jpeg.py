@@ -174,18 +174,30 @@ def _without_jfif(data):
   return data[:app0] + data[app0 + 2 + length:]
 
 
+def test_rgb_component_ids_equal_cv2():
+  """Component ids R, G, B with no JFIF marker mean untransformed RGB,
+  whose planes libjpeg copies through; with the JFIF marker the same ids
+  still mean YCbCr, as in libjpeg's default_decompress_parms."""
+  data = _encode(_image(16, 16, 3, seed=5))
+  _assert_decodes_as_cv2(_with_frame(data, ids=(82, 71, 66)))
+  _assert_decodes_as_cv2(_with_frame(_without_jfif(data), ids=(82, 71, 66)))
+
+
 @pytest.mark.parametrize('kind,edit', [
     ('arithmetic', lambda d: _with_frame(d, marker=0xC9)),
     ('lossless', lambda d: _with_frame(d, marker=0xC3)),
     ('12-bit', lambda d: _with_frame(d, precision=12)),
-    ('RGB', lambda d: _with_frame(_without_jfif(d), ids=(82, 71, 66))),
 ])
-def test_unsupported_jpegs_raise(kind, edit):
-  data = _encode(_image(16, 16, 3, seed=5))
-  # The ids alone (with the JFIF marker) still mean YCbCr, as in libjpeg.
-  _assert_decodes_as_cv2(_with_frame(data, ids=(82, 71, 66)))
+def test_unsupported_jpegs_raise(tmp_path, kind, edit):
+  """Kinds no encoder here writes (cv2 and Pillow write none of them):
+  each raises naming its kind, and load_image names the path too."""
+  data = edit(_encode(_image(16, 16, 3, seed=5)))
   with pytest.raises(ValueError, match=kind):
-    jpeg.decode_jpeg(edit(data))
+    jpeg.decode_jpeg(data)
+  path = tmp_path / 'frame.jpg'
+  path.write_bytes(data)
+  with pytest.raises(ValueError, match=f'frame.jpg.*{kind}'):
+    image_utils.load_image(path)
 
 
 @pytest.mark.parametrize('progressive', [False, True])
