@@ -174,6 +174,17 @@ non-zero exit at the first phase that fails:
            plain versions, timed, on the npz's model. Print each mode's rays/s, its 1080p seconds and the
            occupied share; the PSNR of a 20-step fit is never held to a
            floor.
+  bench    `python -m nerfies_tpu_torch.bench` at its defaults (the port
+           of bench.py: 3 + 20 fused steps of the bench workload at batch
+           6144, the same fed from an on-disk scene, MFU from JAX's FLOP
+           count, 512x512 renders at chunks 8192-65536 and one
+           render_camera) in a subprocess; prints its lines. Require its
+           device_kind to be the card's name, mfu_pct in (0, 100], all
+           four chunks rendered with no render_chunk_errors,
+           render_camera rays/s > 0, the data-fed rays/s at most 1.1x
+           `value`, `value` within 0.67-1.5x of 6144 over the train
+           phase's median step, and every kernel launched (its '# kernel
+           launches' line: counts from 0 at the process's start).
   ddp      the CLIs under `python -m torch.distributed.run --standalone
            --nproc_per_node=<torch.cuda.device_count()>` (NCCL, one process
            per card, each on cuda:{LOCAL_RANK}; world size 1 on a machine of
@@ -196,6 +207,9 @@ non-zero exit at the first phase that fails:
            (but wall_s), the npz and each mode's PSNR and MS-SSIM equal the
            quality and serve_bench phases' bit for bit, at N > 1 within
            rtol 0.05, atol 5e-4; the step ms, rays/s and 1080p seconds.
+           The bench with --skip_data --skip_render --bench_steps 5: one
+           JSON line in the log (rank 0's), num_chips the world size, every
+           training kernel launched on every rank.
            Every kernel must launch in the children (their counts are the
            kernels line's `ddp` launches).
   profile  `nerfies_tpu_torch.profiling step` on the bench workload (fused
@@ -232,6 +246,7 @@ import zlib
 import numpy as np
 import torch
 
+from nerfies_tpu_torch import bench
 from nerfies_tpu_torch import capture
 from nerfies_tpu_torch import checkpoints
 from nerfies_tpu_torch import configs
@@ -380,12 +395,27 @@ JAX_INIT_NPZ = (pathlib.Path(__file__).resolve().parent / 'nerfies_tpu_torch'
 JAX_INIT_ARGV = ('--num_train', '24', '--image_size', '96', '72')
 # The curve rounds PSNR to 5 places, serve_bench to 3.
 SERVE_PSNR_ATOL = 2e-3
+# The bench phase: `python -m nerfies_tpu_torch.bench` with BENCH_ARGV
+# (its defaults) in a subprocess. Its train number must lie within
+# BENCH_VALUE_BAND of TRAIN_BATCH over the train phase's median step
+# (fused medians read 151.40-204.64 ms on the same kernels on an NVIDIA
+# H100 80GB HBM3 at 700 W, so the band is wide: it catches a bench that
+# times something other than the step), its
+# data-fed number at most BENCH_E2E_MAX times its compute-only one, and
+# every chunk of BENCH_CHUNKS must render.
+BENCH_ARGV = ()
+BENCH_CHUNKS = ('8192', '16384', '32768', '65536')
+BENCH_VALUE_BAND = (0.67, 1.5)
+BENCH_E2E_MAX = 1.1
+BENCH_TIMEOUT_S = 600
 # The ddp phase: the CLIs under torchrun, one process per card of the
 # machine, NCCL. The training CLI on CLI_GIN for DDP_FIRST_STEPS steps,
 # resumed to DDP_LAST_STEP, against the same runs without torchrun;
 # DDP_PLAIN_GIN (made for 4 devices, the plain route) for DDP_PLAIN_STEPS
 # steps; the eval CLI on one val frame; quality_bench as the quality
-# phase runs it, and serve_bench on the npz it saves.
+# phase runs it, and serve_bench on the npz it saves; the bench with
+# DDP_BENCH_ARGV.
+DDP_BENCH_ARGV = ('--skip_data', '--skip_render', '--bench_steps', '5')
 DDP_FIRST_STEPS, DDP_LAST_STEP = 3, 5
 DDP_PLAIN_GIN = 'configs/gpu_quarterhd_4gpu.gin'
 DDP_PLAIN_STEPS = 3
@@ -1163,9 +1193,8 @@ def phase_train(seed, device=torch.device('cuda', 0)):
   state = training.create_train_state(params,
                                       warp_alpha=configs.BENCH_WARP_ALPHA)
   step = training.make_train_step(model, train_config, device)
-  batch = profiling.fake_batch(train_config.batch_size,
-                               train_config.background_points_batch_size,
-                               seed)
+  batch = bench.fake_batch(train_config.batch_size,
+                           train_config.background_points_batch_size, seed)
   scalars = training.ScalarParams(**configs.BENCH_TRAIN_SCALARS)
   generator = torch.Generator(device).manual_seed(seed)
 
@@ -1242,8 +1271,8 @@ def phase_train_parity(seed, device=torch.device('cuda', 0)):
   config, train_config = configs.bench_train_config()
   config = dataclasses.replace(config, use_stratified_sampling=False)
   model, params = _train_model(config, seed, device)
-  batch = profiling.fake_batch(PARITY_TRAIN_RAYS, PARITY_BACKGROUND_POINTS,
-                               seed + 1)
+  batch = bench.fake_batch(PARITY_TRAIN_RAYS, PARITY_BACKGROUND_POINTS,
+                           seed + 1)
   rng = np.random.RandomState(seed + 2)
   ids = np.asarray(model.warp_ids)[rng.randint(
       0, len(model.warp_ids), (PARITY_BACKGROUND_POINTS, 1))]
@@ -1374,9 +1403,8 @@ def _plain_warp_step(seed, device):
       dataclasses.replace(config, use_fused_warp=False), seed, device)
   check(model.fused_route and not model.use_fused_warp, 'route')
   step = training.make_train_step(model, train_config, device)
-  batch = profiling.fake_batch(train_config.batch_size,
-                               train_config.background_points_batch_size,
-                               seed)
+  batch = bench.fake_batch(train_config.batch_size,
+                           train_config.background_points_batch_size, seed)
   scalars = training.ScalarParams(**configs.BENCH_TRAIN_SCALARS)
   generator = torch.Generator(device).manual_seed(seed)
   state = training.create_train_state(params,
@@ -1456,7 +1484,7 @@ def phase_cli_plain(train_step_ms, work, device=torch.device('cuda', 0)):
   step = training.make_train_step(model, second.setup.train_config, device)
   id_counts = tuple(max(ids, default=0) + 1 for ids in (
       model.warp_ids, model.camera_ids, model.appearance_ids))
-  fake = profiling.fake_batch(batch, CLI_POINTS, 0, id_counts)
+  fake = bench.fake_batch(batch, CLI_POINTS, 0, id_counts)
   scalars = second.setup.scalar_params
   try:
     prof = profiling.profile(
@@ -2247,12 +2275,14 @@ def _kept_frames():
 def ddp_child(argv):
   """One rank of a ddp run (started by torchrun): `--ddp_child MODE REPORT
   -- CLI ARGS`. MODE 'train' runs nerfies_tpu_torch.train.main, 'eval'
-  nerfies_tpu_torch.eval.main, 'quality' quality_bench.main and 'serve'
-  serve_bench.main, with the launch counts set to 0 just before;
-  REPORT.rank<r>.json gets the counts, the cards the launches were given
-  (_build.launch_cards) and the card current after the run, the run's
-  numbers and the JAX modules loaded (none may be); 'eval' also keeps
-  rank 0's frames (rgb, depth, acc) in REPORT.frames.npz."""
+  nerfies_tpu_torch.eval.main, 'quality' quality_bench.main, 'serve'
+  serve_bench.main and 'bench' nerfies_tpu_torch.bench.main (its report
+  `{'result': the JSON line it returned}`), with the launch counts set to
+  0 just before; REPORT.rank<r>.json gets the counts, the cards the
+  launches were given (_build.launch_cards) and the card current after
+  the run, the run's numbers and the JAX modules loaded (none may be);
+  'eval' also keeps rank 0's frames (rgb, depth, acc) in
+  REPORT.frames.npz."""
   mode, report = argv[0], argv[1]
   cli_argv = argv[argv.index('--') + 1:]
   # Read before the run: a TensorBoard writer may import TensorFlow, and
@@ -2281,6 +2311,9 @@ def ddp_child(argv):
     device = _argv_device(cli_argv)
     out = {'modes': result.result['modes'], 'grid': result.result['grid'],
            'bake_seconds': result.bake_seconds}
+  elif mode == 'bench':
+    out = {'result': bench.main(cli_argv)}
+    device = _argv_device(cli_argv)
   else:
     with _kept_frames() as frames:
       result = eval_cli.main(cli_argv)
@@ -2496,6 +2529,7 @@ def phase_ddp(work):
         f'command {seconds:.1f} s')
 
   _add_counts(counts, _ddp_benches(work, world, card))
+  _add_counts(counts, _ddp_bench(work, world, card))
   print(f'  launches in the ddp children, all ranks: {counts}')
   for name in KERNEL_SOURCES:
     check(counts.get(name, 0) > 0, f'{name}: no launch on the ddp path')
@@ -2605,6 +2639,89 @@ def _ddp_benches(work, world, card, device_type='cuda'):
   return counts
 
 
+def _ddp_bench(work, world, card):
+  """nerfies_tpu_torch.bench under torchrun with DDP_BENCH_ARGV: one JSON
+  line in the log, rank 0's, with num_chips the world size; every
+  training kernel launched on every rank. Returns the children's
+  launches."""
+  reports, seconds = torchrun(work, 'bench', 'bench', list(DDP_BENCH_ARGV),
+                              world)
+  lines = [line for line in (work / 'ddp_bench.log').read_text().splitlines()
+           if line.startswith('{')]
+  check(len(lines) == 1, f'torchrun bench printed {len(lines)} JSON lines')
+  line = json.loads(lines[0])
+  check(line == reports[0]['result'], 'the printed line is not rank 0\'s')
+  check(line['num_chips'] == world,
+        f'torchrun bench: num_chips {line["num_chips"]} on {world} card(s)')
+  counts = {}
+  for rep in reports:
+    _add_counts(counts, rep['launches'])
+    for name in TRAIN_KERNELS:
+      check(rep['launches'].get(name, 0) > 0,
+            f'torchrun bench rank {rep["rank"]}: {name} was not launched')
+  print(f'  [{card}] torchrun bench on {world} card(s): {lines[0]}; '
+        f'command {seconds:.1f} s')
+  return counts
+
+
+def _bench_output(stdout):
+  """The bench's JSON line and its kernel launches (a '#' line)."""
+  lines = stdout.strip().splitlines()
+  marker = '# kernel launches: '
+  launches = [json.loads(line[len(marker):]) for line in lines
+              if line.startswith(marker)]
+  check(len(launches) == 1, 'the bench printed no kernel launches')
+  return json.loads(lines[-1]), launches[0]
+
+
+def phase_bench(train_step_ms, device_name):
+  """`python -m nerfies_tpu_torch.bench` (BENCH_ARGV) in a subprocess on
+  the card; its line held to the card, the train phase's step and
+  itself. Returns its kernel launches."""
+  card = card_label()
+  # Nothing of this process may hold the card's memory for the child.
+  gc.collect()
+  torch.cuda.empty_cache()
+  repo = pathlib.Path(__file__).resolve().parent
+  start = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, '-m', 'nerfies_tpu_torch.bench', *BENCH_ARGV],
+      cwd=repo, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+      check=False)
+  seconds = time.perf_counter() - start
+  check(proc.returncode == 0,
+        f'the bench exited {proc.returncode}:\n{proc.stderr[-3000:]}')
+  for line in proc.stdout.strip().splitlines()[:-1]:
+    print(f'  {line}')
+  result, launches = _bench_output(proc.stdout)
+  print(f'  [{card}] bench line ({seconds:.1f} s): {json.dumps(result)}')
+  check(result['device_kind'] == device_name,
+        f'bench device_kind {result["device_kind"]!r}, card {device_name!r}')
+  check(0 < result.get('mfu_pct', 0) <= 100,
+        f'bench mfu_pct {result.get("mfu_pct")}')
+  sweep = result['render_chunk_sweep']
+  check(set(sweep) == set(BENCH_CHUNKS) and all(v > 0 for v in sweep.values())
+        and 'render_chunk_errors' not in result,
+        f'bench render sweep {sweep}, errors '
+        f'{result.get("render_chunk_errors")}')
+  check(result['render_camera_rays_per_sec_per_chip'] > 0,
+        'bench render_camera gave no rays')
+  check(result['train_e2e_rays_per_sec_per_chip']
+        <= BENCH_E2E_MAX * result['value'],
+        f'bench e2e {result["train_e2e_rays_per_sec_per_chip"]} rays/s above '
+        f'{BENCH_E2E_MAX} x the compute-only {result["value"]}')
+  want = TRAIN_BATCH / (train_step_ms / 1e3)
+  low, high = BENCH_VALUE_BAND
+  print(f'  bench value {result["value"]} rays/s against the train phase\'s '
+        f'{want:.1f} ({train_step_ms:.2f} ms a step): '
+        f'{result["value"] / want:.3f}x')
+  check(low * want <= result['value'] <= high * want,
+        f'bench value {result["value"]} outside [{low}, {high}] x {want:.1f}')
+  for name in KERNEL_SOURCES:
+    check(launches.get(name, 0) > 0, f'the bench launched no {name}')
+  return launches
+
+
 def phase_profile(device):
   """nerfies_tpu_torch.profiling step on the bench workload and dispatch:
   device ms by op, the idle share against the unprofiled median."""
@@ -2712,6 +2829,8 @@ def main(argv=None):
     quality_counts = run_phase('quality', phase_quality, work)
     serve_bench_counts, serve_bench_cases = run_phase(
         'serve_bench', phase_serve_bench, work, device_name)
+    bench_counts = run_phase('bench', phase_bench, train_numbers['step_ms'],
+                             device_name)
     ddp_counts = run_phase('ddp', phase_ddp, work)
     run_phase('profile', phase_profile, device)
   except Exception as e:  # report the failing phase, then fail the run
@@ -2731,6 +2850,7 @@ def main(argv=None):
                'capture': capture_counts.get(name, 0),
                'quality': quality_counts.get(name, 0),
                'serve_bench': serve_bench_counts.get(name, 0),
+               'bench': bench_counts.get(name, 0),
                'ddp': ddp_counts.get(name, 0)}
     for case in eval_cases.get(name, []) + serve_bench_cases.get(name, []):
       k['max_abs_err'] = max(k['max_abs_err'], case['max_abs_err'])

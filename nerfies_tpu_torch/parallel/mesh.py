@@ -107,6 +107,14 @@ def local_batch_slice(global_batch_size: int) -> slice:
   return slice(start, start + per_rank)
 
 
+def rank_rows(tree):
+  """This rank's contiguous rows (`local_batch_slice`) of each array of a
+  globally indexed batch, a nested dict of arrays."""
+  if isinstance(tree, dict):
+    return {k: rank_rows(v) for k, v in tree.items()}
+  return tree[local_batch_slice(len(tree))]
+
+
 # Calls, bytes and milliseconds of `all_reduce_mean` since the last
 # reset: host time on the CPU; on a card, CUDA event pairs, each folded
 # into 'ms' once it has completed, so that only the pairs still in flight

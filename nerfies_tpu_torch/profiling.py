@@ -42,6 +42,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nerfies_tpu_torch import bench
 from nerfies_tpu_torch import configs
 from nerfies_tpu_torch import evaluation
 from nerfies_tpu_torch import training
@@ -216,33 +217,6 @@ def summarize_trace(path: str, top: int = 20) -> Dict[str, object]:
           'by_kernel': largest(by_kernel), 'by_op': largest(by_op)}
 
 
-def fake_batch(batch_size: int, background_points: int = 16384,
-               seed: int = 0, id_counts: Tuple[int, int, int] = (16, 2, 16)):
-  """bench.py's fake_batch: unit directions, random colours, and ids
-  below id_counts (warp, camera, appearance)."""
-  rng = np.random.RandomState(seed)
-  directions = rng.randn(batch_size, 3).astype(np.float32)
-  directions /= np.linalg.norm(directions, axis=-1, keepdims=True)
-  ids = lambda high: rng.randint(0, high, (batch_size, 1))
-  warp, camera, appearance = id_counts
-  return {
-      'origins': np.zeros((batch_size, 3), np.float32),
-      'directions': directions,
-      'rgb': rng.uniform(size=(batch_size, 3)).astype(np.float32),
-      'metadata': {'warp': ids(warp), 'camera': ids(camera),
-                   'appearance': ids(appearance)},
-      'background_points': rng.randn(background_points, 3).astype(
-          np.float32),
-  }
-
-
-def _rank_rows(tree):
-  """This rank's contiguous rows of each array of a global batch."""
-  if isinstance(tree, dict):
-    return {k: _rank_rows(v) for k, v in tree.items()}
-  return tree[mesh.local_batch_slice(len(tree))]
-
-
 def _say(*lines):
   if mesh.is_main():
     for line in lines:
@@ -310,7 +284,8 @@ def run_step(args) -> Dict[str, object]:
   points = (train_config.background_points_batch_size
             if train_config.use_background_loss else 0)
   points -= points % mesh.world_size()
-  batch = _rank_rows(fake_batch(train_config.batch_size, points))
+  batch = mesh.rank_rows(bench.fake_batch(train_config.batch_size,
+                                           points))
   if not train_config.use_background_loss:
     batch.pop('background_points')
   scalars = training.ScalarParams(**configs.BENCH_TRAIN_SCALARS)

@@ -33,8 +33,9 @@ PORT_FILES = sorted((REPO / 'nerfies_tpu_torch').rglob('*.py')) + [
 # beside the port that may import it, and no module of the port imports it.
 JAX_CONVERTER = REPO / 'scripts' / 'jax_checkpoint_to_torch.py'
 NOTEBOOKS = sorted((REPO / 'notebooks' / 'torch').glob('*.ipynb'))
+# 'bench' is the root bench.py, JAX's; the port's is nerfies_tpu_torch.bench.
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'nerfies_tpu', 'absl',
-             'tensorflow', 'cv2', 'PIL', 'matplotlib')
+             'tensorflow', 'cv2', 'PIL', 'matplotlib', 'bench')
 # Absent at import time too: fsspec is imported only for a cloud path.
 BLOCKED_AT_IMPORT = FORBIDDEN + ('fsspec',)
 
