@@ -32,8 +32,8 @@ import numpy as np
 
 from nerfies_tpu_torch import camera as cam
 from nerfies_tpu_torch import image_utils
+from nerfies_tpu_torch import utils
 from nerfies_tpu_torch.parallel import mesh
-from nerfies_tpu_torch.utils import parallel_map
 
 
 def _tree_leaves(tree) -> List[Any]:
@@ -381,7 +381,8 @@ def iterator_from_arrays(arrays: Dict[str, Any],
 
 
 def _prefetch(iterator, size: int):
-  """Runs `iterator` in a daemon thread with a bounded queue."""
+  """Runs `iterator` in a daemon thread with a bounded queue; the
+  consumer's wait for an item is the span `data.wait`."""
   q = queue_lib.Queue(maxsize=size)
   sentinel = object()
 
@@ -397,7 +398,8 @@ def _prefetch(iterator, size: int):
 
   def consumer():
     while True:
-      item = q.get()
+      with utils.span('data.wait'):
+        item = q.get()
       if item is sentinel:
         return
       yield item
@@ -574,7 +576,7 @@ class DataSource(abc.ABC):
   def parallel_get_items(self, item_ids, scale_factor=1.0):
     """Loads many items concurrently."""
     load_fn = functools.partial(self.get_item, scale_factor=scale_factor)
-    return parallel_map(load_fn, item_ids)
+    return utils.parallel_map(load_fn, item_ids)
 
   def create_ray_pool(self, item_ids, include_pixels=False,
                       preload: Optional[bool] = None):

@@ -15,6 +15,10 @@ and the image is gathered onto every rank, as JAX's sharded render
 returns it replicated (nerfies_tpu/evaluation.py:186-192, 267-280); the
 chunk is first rounded up to a multiple of N, as JAX rounds it to the
 device count.
+
+Under torch.profiler a frame is the range `render.frame`, and in it
+`render.rays` (the camera's upload, each chunk's rays), `render.model`
+(each chunk's model call) and `render.gather` (utils.span).
 """
 
 import dataclasses
@@ -124,6 +128,7 @@ def _check_ret_key(default_ret_key):
                      f'not {default_ret_key!r}')
 
 
+@utils.spanned('render.gather')
 def _gather_levels(level_outs, num_rays: int, h: int, w: int,
                    start: float) -> Dict[str, Any]:
   """The chunks' outputs as (H, W, ...) numpy maps, with the timings.
@@ -152,6 +157,7 @@ def _gather_levels(level_outs, num_rays: int, h: int, w: int,
   return result
 
 
+@utils.spanned('render.frame')
 def render_camera(state,
                   camera,
                   metadata_ids: Dict[str, Any],
@@ -185,35 +191,40 @@ def render_camera(state,
   h, w = camera.image_shape
   num_rays = h * w
   chunk, rows, first = _plan_chunks(num_rays, chunk, device_multiple)
-  cam = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
-         for k, v in camera.ray_parameters().items()}
+  with utils.span('render.rays'):
+    cam = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+           for k, v in camera.ray_parameters().items()}
 
   start = time.perf_counter()
   level_outs = []
   for lo in range(0, num_rays, chunk):
-    # Padding rays clamp to the last pixel.
-    ray_idx = torch.clamp(
-        torch.arange(lo + first, lo + first + rows, device=device),
-        max=num_rays - 1)
-    px = (ray_idx % w).float() + 0.5
-    py = torch.div(ray_idx, w, rounding_mode='floor').float() + 0.5
-    directions = camera_lib.pixels_to_rays(torch.stack([px, py], dim=-1),
-                                           **cam)
-    rays = {
-        'origins': cam['position'].expand(rows, 3),
-        'directions': directions,
-        'metadata': {
-            k: torch.full((rows, 1), v, device=device,
-                          dtype=torch.float32 if k == 'time' else torch.int64)
-            for k, v in metadata_ids.items()},
-    }
-    out = model_fn(state.params, rays, state.warp_extra,
-                   _chunk_generator(model_fn, seed, lo // chunk))
+    with utils.span('render.rays'):
+      # Padding rays clamp to the last pixel.
+      ray_idx = torch.clamp(
+          torch.arange(lo + first, lo + first + rows, device=device),
+          max=num_rays - 1)
+      px = (ray_idx % w).float() + 0.5
+      py = torch.div(ray_idx, w, rounding_mode='floor').float() + 0.5
+      directions = camera_lib.pixels_to_rays(torch.stack([px, py], dim=-1),
+                                             **cam)
+      rays = {
+          'origins': cam['position'].expand(rows, 3),
+          'directions': directions,
+          'metadata': {
+              k: torch.full((rows, 1), v, device=device,
+                            dtype=(torch.float32 if k == 'time'
+                                   else torch.int64))
+              for k, v in metadata_ids.items()},
+      }
+    with utils.span('render.model'):
+      out = model_fn(state.params, rays, state.warp_extra,
+                     _chunk_generator(model_fn, seed, lo // chunk))
     level = default_ret_key or ('fine' if 'fine' in out else 'coarse')
     level_outs.append(out[level])
   return _gather_levels(level_outs, num_rays, h, w, start)
 
 
+@utils.spanned('render.frame')
 def render_image(state,
                  rays_dict: Dict[str, Any],
                  model_fn: Callable,
@@ -269,9 +280,11 @@ def render_image(state,
   start = time.perf_counter()
   level_outs = []
   for lo in range(0, num_rays, chunk):
-    hi = min(lo + chunk, num_rays)
-    out = model_fn(state.params, take(rays, lo, hi), state.warp_extra,
-                   _chunk_generator(model_fn, seed, lo // chunk))
+    with utils.span('render.rays'):
+      chunk_rays = take(rays, lo, min(lo + chunk, num_rays))
+    with utils.span('render.model'):
+      out = model_fn(state.params, chunk_rays, state.warp_extra,
+                     _chunk_generator(model_fn, seed, lo // chunk))
     level = default_ret_key or ('fine' if 'fine' in out else 'coarse')
     level_outs.append(out[level])
   return _gather_levels(level_outs, num_rays, h, w, start)

@@ -25,7 +25,9 @@ heads read the bottleneck (`alpha_from_bt`, `rgb_from_bt`): a branch
 reads the bottleneck only when it has a condition of its own, which makes
 its first kernel taller than the trunk width. The kernels pad the
 encoding to 64 columns and each head to 16; the plain versions pad the
-heads to 8, which is the width of the outputs.
+heads to 8, which is the width of the outputs. Under torch.profiler the
+packing and padding of the weights, forward and backward, is the range
+`kernel.pack` (utils.span).
 """
 
 import ctypes
@@ -35,6 +37,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from nerfies_tpu_torch import utils
 from nerfies_tpu_torch.ops import _build
 
 # Shapes the kernels are built for (csrc/fused_mlp.cu): input columns are
@@ -100,6 +103,7 @@ class NerfOperands:
   rgb_from_bt: bool
 
 
+@utils.spanned('kernel.pack')
 def pack_nerf_mlp(params: dict, c_in: int, trunk_depth: int,
                   skips: Sequence[int]) -> NerfOperands:
   """Splits the NerfMLP param tree into the operands of both versions."""
@@ -169,6 +173,7 @@ class WarpOperands:
   head_b: torch.Tensor  # (8,)
 
 
+@utils.spanned('kernel.pack')
 def pack_warp_trunk(params: dict, c_in: int, trunk_depth: int,
                     skips: Sequence[int],
                     head_key: str = 'branches_wv') -> WarpOperands:
@@ -326,16 +331,17 @@ def _launch_nerf(x, rgb_row_bias, ops: NerfOperands, trunk_depth, skips):
   else:
     rgb_row_bias = _check_row_bias(rgb_row_bias, x, ops.rgb_width, name)
 
-  w = [_pad_rows(ops.trunk_w[0], _PE_PAD).contiguous()] + ops.trunk_w[1:]
-  wx = [(_pad_rows(ops.trunk_wx[i], _PE_PAD).contiguous()
-         if i in ops.trunk_wx else None) for i in range(_MAX_DEPTH)]
-  pad = [None] * (_MAX_DEPTH - trunk_depth)
-  bot_w, bot_b = ops.bottleneck or (None, None)
-  rh_w, rh_b = ops.rgb_hidden or (None, None)
-  head = lambda t: _pad_cols(t, _HEAD_PAD).contiguous()
-  weights = (w + pad + wx + ops.trunk_b + pad
-             + [bot_w, bot_b, head(ops.alpha_w), head(ops.alpha_b),
-                rh_w, rh_b, head(ops.rgb_w), head(ops.rgb_b)])
+  with utils.span('kernel.pack'):
+    w = [_pad_rows(ops.trunk_w[0], _PE_PAD).contiguous()] + ops.trunk_w[1:]
+    wx = [(_pad_rows(ops.trunk_wx[i], _PE_PAD).contiguous()
+           if i in ops.trunk_wx else None) for i in range(_MAX_DEPTH)]
+    pad = [None] * (_MAX_DEPTH - trunk_depth)
+    bot_w, bot_b = ops.bottleneck or (None, None)
+    rh_w, rh_b = ops.rgb_hidden or (None, None)
+    head = lambda t: _pad_cols(t, _HEAD_PAD).contiguous()
+    weights = (w + pad + wx + ops.trunk_b + pad
+               + [bot_w, bot_b, head(ops.alpha_w), head(ops.alpha_b),
+                  rh_w, rh_b, head(ops.rgb_w), head(ops.rgb_b)])
   _check_operands([t for t in weights if t is not None], x.device, name)
 
   alpha = torch.empty((n, _OUT_COLS), dtype=torch.float32, device=x.device)
@@ -402,13 +408,14 @@ def _launch_warp(x, row_biases, ops: WarpOperands, trunk_depth):
       raise ValueError(f'{name}: row bias for layer {layer} of {trunk_depth}')
     rb[layer] = _check_row_bias(b, x, ops.width, name)
 
-  w = [_pad_rows(ops.trunk_w[0], _PE_PAD).contiguous()] + ops.trunk_w[1:]
-  wx = [(_pad_rows(ops.trunk_wx[i], _PE_PAD).contiguous()
-         if i in ops.trunk_wx else None) for i in range(_MAX_DEPTH)]
-  pad = [None] * (_MAX_DEPTH - trunk_depth)
-  weights = (w + pad + wx + ops.trunk_b + pad
-             + [_pad_cols(ops.head_w, _HEAD_PAD).contiguous(),
-                _pad_cols(ops.head_b, _HEAD_PAD).contiguous()])
+  with utils.span('kernel.pack'):
+    w = [_pad_rows(ops.trunk_w[0], _PE_PAD).contiguous()] + ops.trunk_w[1:]
+    wx = [(_pad_rows(ops.trunk_wx[i], _PE_PAD).contiguous()
+           if i in ops.trunk_wx else None) for i in range(_MAX_DEPTH)]
+    pad = [None] * (_MAX_DEPTH - trunk_depth)
+    weights = (w + pad + wx + ops.trunk_b + pad
+               + [_pad_cols(ops.head_w, _HEAD_PAD).contiguous(),
+                  _pad_cols(ops.head_b, _HEAD_PAD).contiguous()])
   _check_operands([t for t in weights if t is not None], x.device, name)
 
   out = torch.empty((n, _OUT_COLS), dtype=torch.float32, device=x.device)
@@ -711,16 +718,17 @@ def _nerf_bwd_passes(x, rgb_row_bias, ops: NerfOperands, trunk_depth,
 
   # The kernel reads every weight in its (in, out) layout, also where it
   # multiplies by the transpose: no transposed copies.
-  w = [_pad_rows(ops.trunk_w[0], _PE_PAD).contiguous()] + ops.trunk_w[1:]
-  wx = [(_pad_rows(ops.trunk_wx[i], _PE_PAD).contiguous()
-         if i in ops.trunk_wx else None) for i in range(_MAX_DEPTH)]
-  pad = [None] * (_MAX_DEPTH - trunk_depth)
-  bot_w, bot_b = ops.bottleneck or (None, None)
-  rh_w, rh_b = ops.rgb_hidden
-  head = lambda t: _pad_cols(t, _HEAD_PAD).contiguous()
-  weights = (w + pad + wx + ops.trunk_b + pad
-             + [bot_w, bot_b, head(ops.alpha_w), rh_w, rh_b,
-                head(ops.rgb_w)])
+  with utils.span('kernel.pack'):
+    w = [_pad_rows(ops.trunk_w[0], _PE_PAD).contiguous()] + ops.trunk_w[1:]
+    wx = [(_pad_rows(ops.trunk_wx[i], _PE_PAD).contiguous()
+           if i in ops.trunk_wx else None) for i in range(_MAX_DEPTH)]
+    pad = [None] * (_MAX_DEPTH - trunk_depth)
+    bot_w, bot_b = ops.bottleneck or (None, None)
+    rh_w, rh_b = ops.rgb_hidden
+    head = lambda t: _pad_cols(t, _HEAD_PAD).contiguous()
+    weights = (w + pad + wx + ops.trunk_b + pad
+               + [bot_w, bot_b, head(ops.alpha_w), rh_w, rh_b,
+                  head(ops.rgb_w)])
   _check_operands([t for t in weights if t is not None], device, name)
 
   # The row pass writes whole tiles of _NERF_BWD_TILE rows.

@@ -35,6 +35,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from nerfies_tpu_torch import utils
 from nerfies_tpu_torch.ops import _build
 from nerfies_tpu_torch.ops import fused_mlp
 from nerfies_tpu_torch.ops.fused_mlp import (_HEAD_PAD, _MAX_DEPTH, _OUT_COLS,
@@ -83,6 +84,7 @@ def bwd_chunks(n: int, most: int):
   return [(row0, min(size, n - row0)) for row0 in range(0, n, size)]
 
 
+@utils.spanned('kernel.pack')
 def pack(params: dict, c_in: int, f_embed: int, trunk_depth: int,
          skips: Sequence[int]) -> Dict[str, torch.Tensor]:
   """Warp trunk and head params -> {name: bf16 operand} (fused_warp.py:44).
@@ -255,6 +257,7 @@ def _f32(t):
   return t.float().contiguous()
 
 
+@utils.spanned('kernel.pack')
 def _kernel_weights(ops, trunk_depth, skips):
   """w, wx, we, b (padded to the kernel's shapes), in pointer order."""
   pad = [None] * (_MAX_DEPTH - trunk_depth)

@@ -22,6 +22,10 @@ The counterpart of scripts/profile.py on torch.profiler:
   # bytes a step (rank 0 prints):
   torchrun --standalone --nproc_per_node=4 -m nerfies_tpu_torch.profiling step
 
+`step`, `render --trace_dir` and `trace` also charge every device op to
+the program span (utils.span, one of SPANS) that launched it, with the
+idle ms before it (`span_table` of the Chrome trace).
+
 Every mode runs on the card unless `--device cpu` is given. Left out of
 scripts/profile.py's flags: `--bwd_tile` (the CUDA kernels' tiles are
 fixed when they are compiled; nothing reads a tile from the environment)
@@ -36,6 +40,7 @@ import dataclasses
 import json
 import os
 import statistics
+import tempfile
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -57,8 +62,18 @@ OUR_KERNEL_NAMES = ('nerf_mlp_kernel', 'warp_trunk_kernel',
                     'dw_reduce_kernel')
 # Device kernels of a collective (NCCL's names).
 COLLECTIVE_MARKS = ('nccl',)
-# Chrome-trace categories of device work.
+# Chrome-trace categories of device work, and of its launches.
 DEVICE_CATEGORIES = ('kernel', 'gpu_memcpy', 'gpu_memset')
+LAUNCH_CATEGORIES = ('cuda_runtime', 'cuda_driver')
+# The program's spans (utils.span), the only ranges of a trace that
+# `span_table` charges, and its unit spans: the thread that opens those is
+# the one whose span an op launched outside any span of its own thread (by
+# the autograd engine's thread, in the backward) is charged to.
+SPANS = ('data.wait', 'train.to_device', 'train.step', 'train.forward',
+         'train.loss', 'train.backward', 'train.all_reduce', 'train.optimizer',
+         'kernel.pack', 'render.frame', 'render.rays', 'render.model',
+         'render.gather')
+UNIT_SPANS = ('train.step', 'render.frame')
 # As in scripts/profile.py: samples a ray in `layout`, and the calls each
 # timing of `layout` and `dispatch` averages.
 LAYOUT_SAMPLES = 128
@@ -147,6 +162,17 @@ def profile(fn: Callable[[], object], device='cuda',
   return breakdown(prof.events(), wall_ms)
 
 
+def profile_spans(fn: Callable[[], object], device='cuda',
+                  trace_path: Optional[str] = None
+                  ) -> Tuple[Profile, Dict[str, Tuple[float, int, float]]]:
+  """`profile(fn, device, trace_path)` and the `span_table` of its Chrome
+  trace (a temporary file unless `trace_path` keeps it)."""
+  with tempfile.TemporaryDirectory() as scratch:
+    path = trace_path or os.path.join(scratch, 'trace.json')
+    prof = profile(fn, device, path)
+    return prof, span_table(_trace_events(path))
+
+
 def breakdown(events, wall_ms: float) -> Profile:
   """The Profile of torch.profiler's FunctionEvents (see `profile`)."""
   kernels = collections.Counter()
@@ -177,16 +203,81 @@ def breakdown(events, wall_ms: float) -> Profile:
                  {k: (v[0], v[1]) for k, v in by_op.items()})
 
 
-def summarize_trace(path: str, top: int = 20) -> Dict[str, object]:
-  """Device time of a torch.profiler Chrome trace: total, by device op
-  and by the CPU op that launched it (matched by 'External id').
-
-  Returns {'device_ms', 'device_ops', 'by_kernel': [(name, ms, count)],
-  'by_op': [(name, ms, count)]}, the lists the `top` largest.
-  """
+def _trace_events(path: str) -> List[dict]:
   with open(path) as f:
     trace = json.load(f)
-  events = trace['traceEvents'] if isinstance(trace, dict) else trace
+  return trace['traceEvents'] if isinstance(trace, dict) else trace
+
+
+def span_table(events: List[dict]) -> Dict[str, Tuple[float, int, float]]:
+  """(device ms, device ops, idle ms before them) by the program span that
+  launched each device op of a Chrome trace's `events`.
+
+  A device op is charged to the innermost program span (a
+  `user_annotation` named in SPANS, as utils.span records it) that
+  encloses its launch on the launching thread; one launched on a thread with no span open there (the autograd
+  engine's, which runs the backward) to the innermost span open at its
+  launch on the thread of a unit span (UNIT_SPANS); ops launched in no
+  span to 'unspanned'. The device's idle time between two ops (no op
+  running) is charged with the op that ends it.
+  """
+  spans = collections.defaultdict(list)
+  launches, ops = {}, []
+  for event in events:
+    if 'dur' not in event:
+      continue
+    cat, args = event.get('cat'), event.get('args') or {}
+    start = float(event.get('ts', 0.0))
+    end = start + float(event['dur'])
+    if cat in DEVICE_CATEGORIES:
+      ops.append((start, end, args.get('correlation')))
+    elif cat in LAUNCH_CATEGORIES and 'correlation' in args:
+      launches[args['correlation']] = (event.get('tid'), start)
+    elif cat == 'user_annotation' and event['name'] in SPANS:
+      spans[event.get('tid')].append((start, end, event['name']))
+  for thread in spans.values():
+    thread.sort()
+  units = [tid for tid, thread in spans.items()
+           if any(name in UNIT_SPANS for _, _, name in thread)]
+
+  def innermost(tid, ts):
+    found = None
+    for start, end, name in spans.get(tid, ()):
+      if start > ts:
+        break
+      if end >= ts:
+        found = name  # a later start that encloses ts lies inside
+    return found
+
+  table = collections.defaultdict(lambda: [0.0, 0, 0.0])
+  last = None
+  for start, end, correlation in sorted(ops):
+    tid, ts = launches.get(correlation, (None, None))
+    name = None
+    for thread in ([tid] + [u for u in units if u != tid]
+                   if tid is not None else []):
+      name = innermost(thread, ts)
+      if name is not None:
+        break
+    row = table[name or 'unspanned']
+    row[0] += (end - start) / 1e3
+    row[1] += 1
+    if last is not None and start > last:
+      row[2] += (start - last) / 1e3
+    last = end if last is None else max(last, end)
+  return {name: tuple(row) for name, row in table.items()}
+
+
+def summarize_trace(path: str, top: int = 20) -> Dict[str, object]:
+  """Device time of a torch.profiler Chrome trace: total, by device op,
+  by the CPU op that launched it (matched by 'External id') and by the
+  program span that launched it (`span_table`).
+
+  Returns {'device_ms', 'device_ops', 'by_kernel': [(name, ms, count)],
+  'by_op': [(name, ms, count)], 'by_span': [(name, ms, count, idle
+  ms)]}, the first two lists the `top` largest, the spans by idle ms.
+  """
+  events = _trace_events(path)
   op_names = {}
   for event in events:
     if event.get('cat') == 'cpu_op' and 'External id' in event.get(
@@ -214,7 +305,22 @@ def summarize_trace(path: str, top: int = 20) -> Dict[str, object]:
                   key=lambda row: -row[1])[:top]
 
   return {'device_ms': total_us / 1e3, 'device_ops': count,
-          'by_kernel': largest(by_kernel), 'by_op': largest(by_op)}
+          'by_kernel': largest(by_kernel), 'by_op': largest(by_op),
+          'by_span': _span_rows(span_table(events))}
+
+
+def _span_rows(table) -> List[Tuple[str, float, int, float]]:
+  """The rows of a span table, the largest idle ms first."""
+  return sorted(((name, ms, count, idle)
+                 for name, (ms, count, idle) in table.items()),
+                key=lambda row: -row[3])
+
+
+def _say_spans(rows, say):
+  say('device ms, device ops and the idle ms before them, by the program '
+      'span that launched them:')
+  for name, ms, count, idle in rows:
+    say(f'  {ms:10.3f} ms {count:6d}x  idle {idle:10.3f} ms  {name}')
 
 
 def _say(*lines):
@@ -223,7 +329,8 @@ def _say(*lines):
       print(line, flush=True)
 
 
-def _print_profile(prof: Profile, reference_ms: float, what: str):
+def _print_profile(prof: Profile, reference_ms: float, what: str,
+                   spans: Optional[Dict[str, Tuple[float, int, float]]] = None):
   _say(f'profiled {what}: {prof.wall_ms:.2f} ms wall, {prof.busy_ms:.2f} ms '
        f'device busy, {prof.device_ops} device ops; idle share '
        f'{idle_share(prof.busy_ms, reference_ms):.3f} against the '
@@ -233,6 +340,8 @@ def _print_profile(prof: Profile, reference_ms: float, what: str):
   for name, ms, count in prof.top_ops():
     share = 100 * ms / max(prof.busy_ms, 1e-9)
     _say(f'  {ms:10.3f} ms {count:6d}x {share:5.1f}%  {name}')
+  if spans:
+    _say_spans(_span_rows(spans), _say)
 
 
 # ---------------------------------------------------------------- step
@@ -321,9 +430,11 @@ def run_step(args) -> Dict[str, object]:
        f'{loss:.4f}')
   trace_path = (os.path.join(args.trace_dir, f'step_rank{mesh.rank()}.json')
                 if args.trace_dir else None)
-  prof = profile(lambda: run(3 + args.steps, state), device, trace_path)
-  _print_profile(prof, median, 'step')
+  prof, spans = profile_spans(lambda: run(3 + args.steps, state), device,
+                              trace_path)
+  _print_profile(prof, median, 'step', spans)
   result = {'step_ms': times, 'median_ms': median, 'profile': prof,
+            'by_span': _span_rows(spans),
             'idle_share': idle_share(prof.busy_ms, median),
             'world_size': mesh.world_size()}
   if mesh.world_size() > 1:
@@ -374,10 +485,11 @@ def run_render(args) -> Dict[str, object]:
             'rays_per_sec': out['rays_per_sec']}
   if args.trace_dir:
     path = os.path.join(args.trace_dir, f'render_rank{mesh.rank()}.json')
-    prof = profile(lambda: evaluation.render_image(
+    prof, spans = profile_spans(lambda: evaluation.render_image(
         state, rays, render_fn, chunk=args.chunk), device, path)
-    _print_profile(prof, out['render_time'] * 1e3, 'render')
+    _print_profile(prof, out['render_time'] * 1e3, 'render', spans)
     result['profile'] = prof
+    result['by_span'] = _span_rows(spans)
   return result
 
 
@@ -511,6 +623,8 @@ def run_trace(args) -> Dict[str, object]:
     total = max(summary['device_ms'], 1e-9)
     for name, ms, count in rows:
       print(f'  {ms:10.3f} ms {count:6d}x {100 * ms / total:5.1f}%  {name}')
+  if summary['by_span']:
+    _say_spans(summary['by_span'], print)
   return summary
 
 

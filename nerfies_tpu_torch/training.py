@@ -26,6 +26,10 @@ the global draws (`mesh.shard_generator`), and the gradients and stats
 are averaged over ranks in one all-reduce before Adam; `metric/psnr` is
 then derived from the averaged `loss/rgb`, as JAX derives it from the
 global batch's. At world size 1 nothing is reduced.
+Under torch.profiler the step's phases are named ranges (utils.span):
+`train.step` around the whole step, `train.to_device`, `train.forward`,
+`train.loss`, `train.backward` (autograd's pass and the zero fill of
+unused gradients), `train.all_reduce` and `train.optimizer`.
 The training CLI (train.py) drives `make_train_step` with the schedules
 (schedules.py), the data pipeline (datasets/) and checkpoints
 (checkpoints.py).
@@ -104,6 +108,7 @@ def create_train_state(params: Dict[str, Any], warp_alpha: float = 0.0,
                     time_alpha=float(time_alpha))
 
 
+@utils.spanned('train.optimizer')
 def adam_update(grads, opt_state: AdamState, params, learning_rate,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
   """optax.scale_by_adam then -learning_rate (training.py:312-320).
@@ -320,35 +325,38 @@ def train_step(model,
   coarse_gen = fine_gen = (generator if model.use_stratified_sampling
                            else None)
   return_weights = use_warp_reg_loss or use_elastic_loss
-  if model.fused_route:
-    ret = fused_train.model_forward(
-        model, params, batch, state.warp_extra, coarse_gen, fine_gen,
-        return_points=need_points, return_weights=return_weights)
-  else:
-    ret = model(params, batch, state.warp_extra, return_points=need_points,
-                return_weights=return_weights, coarse_generator=coarse_gen,
-                fine_generator=fine_gen)
-  losses, stats = {}, {}
-  if 'fine' in ret:
-    losses['fine'], stats['fine'] = level_loss(ret['fine'], False)
-  if 'coarse' in ret:
-    losses['coarse'], stats['coarse'] = level_loss(ret['coarse'],
-                                                   use_elastic_loss)
-  if use_background_loss:
-    background_loss = compute_background_loss(
-        model, state, params, batch['background_points'],
-        scalar_params.background_noise_std, generator=generator,
-        draws=background_draws).mean()
-    losses['background'] = (scalar_params.background_loss_weight
-                            * background_loss)
-    stats['background_loss'] = background_loss
-  total = sum(losses.values())
+  with utils.span('train.forward'):
+    if model.fused_route:
+      ret = fused_train.model_forward(
+          model, params, batch, state.warp_extra, coarse_gen, fine_gen,
+          return_points=need_points, return_weights=return_weights)
+    else:
+      ret = model(params, batch, state.warp_extra, return_points=need_points,
+                  return_weights=return_weights, coarse_generator=coarse_gen,
+                  fine_generator=fine_gen)
+  with utils.span('train.loss'):
+    losses, stats = {}, {}
+    if 'fine' in ret:
+      losses['fine'], stats['fine'] = level_loss(ret['fine'], False)
+    if 'coarse' in ret:
+      losses['coarse'], stats['coarse'] = level_loss(ret['coarse'],
+                                                     use_elastic_loss)
+    if use_background_loss:
+      background_loss = compute_background_loss(
+          model, state, params, batch['background_points'],
+          scalar_params.background_noise_std, generator=generator,
+          draws=background_draws).mean()
+      losses['background'] = (scalar_params.background_loss_weight
+                              * background_loss)
+      stats['background_loss'] = background_loss
+    total = sum(losses.values())
 
   flat = fused_mlp.flatten_tree(params)
   leaves = [t for _, t in flat]
-  grads = torch.autograd.grad(total, leaves, allow_unused=True)
-  grads = [torch.zeros_like(t) if g is None else g
-           for t, g in zip(leaves, grads)]
+  with utils.span('train.backward'):
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
   stats = _map(lambda t: t.detach(), stats)
   if mesh.world_size() > 1:
     grads, stats = _mean_over_ranks(grads, stats)
@@ -360,6 +368,7 @@ def train_step(model,
                              opt_state=new_opt_state), stats
 
 
+@utils.spanned('train.all_reduce')
 def _mean_over_ranks(grads, stats):
   """The gradients and stats averaged over ranks in one all-reduce, with
   each level's `metric/psnr` derived anew from its averaged `loss/rgb`."""
@@ -403,10 +412,12 @@ def make_train_step(model, train_config, device='cuda'):
   device = resolve_device(device)
   fused_train.check_trainable(model)
 
+  @utils.spanned('train.step')
   def step(generator, state, batch, scalar_params, background_draws=None):
+    with utils.span('train.to_device'):
+      batch = utils.to_device(batch, device)
     return train_step(
-        model, generator, state, utils.to_device(batch, device),
-        scalar_params,
+        model, generator, state, batch, scalar_params,
         use_elastic_loss=train_config.use_elastic_loss,
         elastic_reduce_method=train_config.elastic_reduce_method,
         elastic_loss_type=train_config.elastic_loss_type,

@@ -5,13 +5,15 @@ Port of nerfies_tpu/utils.py: `parallel_map`, `strided_subset`,
 latent-code interpolation (numpy and scipy, as in JAX); `robust_whiten`,
 `learning_rate_decay`, `normalize`, `broadcast_feature_to`,
 `metadata_like`, `tree_collate` and `print_time`; `to_device`, an
-explicit move onto a device (JAX's moves onto its default one); and
-`fold_in`, the port's `random.fold_in`. The differentiable helpers that
-JAX's module re-exports live in `ops/mathutils.py`.
+explicit move onto a device (JAX's moves onto its default one);
+`fold_in`, the port's `random.fold_in`; and `span` / `spanned`, the named
+program ranges that torch.profiler records. The differentiable helpers
+that JAX's module re-exports live in `ops/mathutils.py`.
 """
 
 import collections
 import contextlib
+import functools
 import time
 from concurrent import futures
 from typing import List, Union
@@ -20,6 +22,33 @@ import numpy as np
 from scipy import interpolate
 from scipy.spatial import transform as scipy_transform
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+  """A range named `name` in torch.profiler's trace while a profiler is on,
+  else a shared no-op context.
+
+  The range is `torch.profiler.record_function(name)`: the profiler keeps
+  it and writes it with its trace, as a `user_annotation` event on the
+  thread that opened it, on the clock of the device ops' events. It keeps
+  no clock or buffer here and launches no device op.
+  """
+  if torch.autograd._profiler_enabled():
+    return torch.profiler.record_function(name)
+  return _NO_SPAN
+
+
+def spanned(name: str):
+  """Runs each call of the decorated function inside `span(name)`."""
+  def decorate(fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+      with span(name):
+        return fn(*args, **kwargs)
+    return wrapper
+  return decorate
 
 
 def fold_in(seed: int, index: int, device) -> torch.Generator:

@@ -54,6 +54,7 @@ def test_step_prints_the_median_and_the_profiled_step(
   assert result['idle_share'] == pytest.approx(profiling.idle_share(
       result['profile'].busy_ms, result['median_ms']))
   assert result['world_size'] == 1 and 'all_reduce' not in result
+  assert result['by_span'] == []  # no device op on the CPU
   trace = tmp_path / 'step_rank0.json'
   assert trace.is_file()
   summary = profiling.main(['trace', str(trace)])
@@ -191,3 +192,66 @@ def test_needs_a_card_unless_told_cpu(mode):
     pytest.skip('a card is present: the default device is valid')
   with pytest.raises(RuntimeError, match='device="cpu"'):
     profiling.main(mode)
+
+
+def test_trace_charges_device_ops_to_the_spans_that_launched_them(
+    tmp_path, capsys):
+  """A Chrome trace with the program's spans: each device op charged to
+  the innermost span around its launch on the launching thread; one the
+  autograd engine's thread launches outside a span of its own, to the
+  step thread's span at its launch; the idle time before each op with
+  it."""
+  def span(name, ts, dur, tid=1):
+    return {'ph': 'X', 'cat': 'user_annotation', 'name': name, 'ts': ts,
+            'dur': dur, 'tid': tid, 'args': {}}
+
+  def launch(correlation, ts, tid=1):
+    return {'ph': 'X', 'cat': 'cuda_runtime', 'name': 'cudaLaunchKernel',
+            'ts': ts, 'dur': 1, 'tid': tid,
+            'args': {'correlation': correlation}}
+
+  def kernel(correlation, ts, dur):
+    return {'ph': 'X', 'cat': 'kernel', 'name': f'k{correlation}', 'ts': ts,
+            'dur': dur, 'tid': 7, 'args': {'correlation': correlation}}
+
+  events = [
+      span('train.step', 0, 1000), span('train.forward', 100, 300),
+      span('kernel.pack', 120, 30), span('train.backward', 400, 300),
+      # Not a program span: never charged, even where innermost.
+      span('enumerate(DataLoader)', 190, 20),
+      span('kernel.pack', 500, 20, tid=2),
+      launch(1, 130), launch(2, 200), launch(3, 450, tid=2),
+      launch(4, 510, tid=2), launch(5, 1100),
+      kernel(1, 2000, 100), kernel(2, 2300, 200), kernel(3, 2500, 1000),
+      kernel(4, 3600, 400), kernel(5, 4000, 50),
+  ]
+  path = tmp_path / 'trace.json'
+  path.write_text(json.dumps({'traceEvents': events}))
+  summary = profiling.main(['trace', str(path)])
+  rows = {name: (ms, count, idle)
+          for name, ms, count, idle in summary['by_span']}
+  assert rows == {
+      'kernel.pack': (pytest.approx(0.5), 2, pytest.approx(0.1)),
+      'train.forward': (pytest.approx(0.2), 1, pytest.approx(0.2)),
+      'train.backward': (pytest.approx(1.0), 1, pytest.approx(0.0)),
+      'unspanned': (pytest.approx(0.05), 1, pytest.approx(0.0))}
+  assert summary['by_span'][0][0] == 'train.forward'  # the most idle first
+  out = capsys.readouterr().out
+  assert 'by the program span that launched them' in out
+  assert 'unspanned' in out and 'train.backward' in out
+
+
+def test_a_profile_prints_its_span_table(capsys):
+  prof = profiling.Profile(
+      wall_ms=10.0, busy_ms=4.0, device_ops=3, kernels={}, by_op={})
+  profiling._print_profile(prof, 8.0, 'step', {
+      'train.optimizer': (1.0, 2, 3.0), 'kernel.pack': (3.0, 1, 0.5)})
+  out = capsys.readouterr().out
+  lines = out.splitlines()
+  table = lines.index(next(l for l in lines if 'program span' in l))
+  assert 'train.optimizer' in lines[table + 1]
+  assert 'kernel.pack' in lines[table + 2]
+  # On the CPU no device op runs: no span is charged with any.
+  cpu, spans = profiling.profile_spans(
+      lambda: torch.ones(4) @ torch.ones(4), 'cpu')
+  assert cpu.device_ops == 0 and spans == {}

@@ -348,6 +348,37 @@ def test_profile_dir_records_steps_10_to_20(scene_dir, tmp_path,
   assert set(result.stats) == {'coarse', 'fine', 'background_loss'}
 
 
+def test_the_cli_profile_holds_the_spans_of_its_timed_phases(
+    scene_dir, tmp_path, monkeypatch):
+  """The loop's TimeTracker phases 'data' and 'train_step' lie over the
+  spans that the iterators and the step open: the trace of steps 11-12
+  holds a `train.step` a step, with its phases, and the iterators'
+  `data.wait`s outside them."""
+  import json
+  monkeypatch.setattr(train, '_make_summary_writer', lambda _: None)
+  argv = ['--base_folder', str(tmp_path / 'exp'), '--data_dir',
+          str(scene_dir), '--device', 'cpu', '--gin_configs', GIN,
+          '--profile_dir', str(tmp_path / 'profile')]
+  for binding in BINDINGS + ['TrainConfig.max_steps = 12',
+                             'TrainConfig.save_every = 100',
+                             'TrainConfig.print_every = 100']:
+    argv += ['--gin_bindings', binding]
+  result = train.main(argv)
+  assert result.state.step == 12
+  path = tmp_path / 'profile' / 'trace_to_step_13.json'
+  events = json.loads(path.read_text())
+  events = events['traceEvents'] if isinstance(events, dict) else events
+  names = [e['name'] for e in events if e.get('cat') == 'user_annotation']
+  assert names.count('train.step') == 2
+  for name in ('train.to_device', 'train.forward', 'train.loss',
+               'train.backward', 'train.optimizer'):
+    assert names.count(name) == 2, name
+  # Step 12's rays and background points: the profiler starts after
+  # step 11's batch is drawn, and no batch is drawn after step 12.
+  assert names.count('data.wait') == 2
+  assert len(result.time_tracker.values('train_step')) == 12
+
+
 def test_streaming_pool_through_datasource_kwargs(scene_dir, tmp_path):
   """`preload=False` reaches the streaming pool through
   ExperimentConfig.datasource_kwargs, as in JAX (core.py:579-597)."""
